@@ -1,0 +1,237 @@
+"""Coarse-to-fine occupancy evaluation: the mono octree semantics of
+``eval_grid_octree_mono`` (``surs_tpu/recon/evaluator.py:606``) in plain
+torch, on whatever device the evaluation function uses.
+
+Each level lives on its own L^3 lattice (L = R / stride):
+
+  * the still-dirty lattice points are compacted with ``torch.nonzero``
+    and evaluated in chunks of ``num_samples`` points (one K1 launch per
+    chunk on the serving path);
+  * between levels, a cell whose center is still dirty and whose 8 corner
+    values span less than ``threshold`` is filled with (max + min) / 2 and
+    cleared; the dirty mask is shared by the HR and LR fields while the
+    fill values are per field (``_prune_upsample``, :365-448); then the
+    lattice expands to the next level's.
+
+Visual-hull pruning (``silhouette``): a lattice point or cell center
+whose projection misses the dilated 2-D silhouette starts clean with
+occupancy 0 and is never queried (:755-833). With the production
+orthographic calibration the projected uv is constant along one lattice
+axis, so each level's mask is a 2-D hit map broadcast along that axis.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.geometry import orthogonal
+from ..ops.grid_sample import grid_sample_points
+
+# eval_fn: [3, C] float32 world points -> (hr [C], lr [C])
+EvalFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def level_schedule(R: int, init_resolution: int):
+    """Stride halving schedule R/init, ..., 1; every stride must divide R
+    and each next stride its predecessor."""
+    reso = R // init_resolution
+    out = []
+    while reso > 0:
+        out.append(reso)
+        reso //= 2
+    for i, s in enumerate(out):
+        nxt = out[i + 1] if i + 1 < len(out) else None
+        if R % s != 0 or (nxt is not None and s % nxt != 0):
+            raise ValueError(
+                f"unsupported octree schedule {out} for resolution {R}: "
+                f"use a power-of-two resolution/init_resolution ratio")
+    return out
+
+
+def _expand(x: torch.Tensor, f: int) -> torch.Tensor:
+    """[A, A, A] -> [fA, fA, fA], nearest (value at floor(p / f))."""
+    if f == 1:
+        return x
+    A = x.shape[0]
+    return x[:, None, :, None, :, None].expand(A, f, A, f, A, f) \
+        .reshape(f * A, f * A, f * A)
+
+
+def _pad_cells(c: torch.Tensor) -> torch.Tensor:
+    """[n, n, n] cell array -> [n+1, n+1, n+1], zero/False at the end."""
+    n = c.shape[0]
+    out = c.new_zeros((n + 1,) * 3)
+    out[:n, :n, :n] = c
+    return out
+
+
+def _prune_upsample(reso: int, threshold: float, val_hr, val_lr, evald,
+                    rfh, rfl, dirty, init_center):
+    """Fill the prunable cells of the [L]^3 level and expand every state
+    tensor to the next level's [fL]^3 lattice."""
+    L = val_hr.shape[0]
+    n = L - 1
+    f = reso // (reso // 2)
+    evald = evald | dirty    # every dirty point was evaluated this level
+
+    def spans(v):
+        c = torch.stack([v[:-1, :-1, :-1], v[:-1, :-1, 1:], v[:-1, 1:, :-1],
+                         v[:-1, 1:, 1:], v[1:, :-1, :-1], v[1:, :-1, 1:],
+                         v[1:, 1:, :-1], v[1:, 1:, 1:]])
+        return c.amin(dim=0), c.amax(dim=0)
+
+    vmin_hr, vmax_hr = spans(val_hr)
+    vmin_lr, vmax_lr = spans(val_lr)
+    center_ok = ~(rfh[:n, :n, :n] | rfl[:n, :n, :n])
+    if init_center is not None:
+        center_ok = center_ok & init_center
+    fill_hr = center_ok & ((vmax_hr - vmin_hr) < threshold)
+    fill_lr = center_ok & ((vmax_lr - vmin_lr) < threshold)
+
+    e1 = (torch.arange(f * L, device=val_hr.device) % f) == 0
+    coarse_pt = e1[:, None, None] & e1[None, :, None] & e1[None, None, :]
+
+    def expand_field(val, rf, fill, vmin, vmax):
+        fillp = _pad_cells(fill)
+        fvp = _pad_cells((vmax + vmin) * 0.5)
+        rf_old = _pad_cells(rf[:n, :n, :n])
+        v_on = torch.where(fillp, fvp, val)
+        v_off = torch.where(fillp, fvp,
+                            torch.where(rf_old, val, torch.zeros_like(val)))
+        val2 = torch.where(coarse_pt, _expand(v_on, f), _expand(v_off, f))
+        return val2, _expand(rf_old | fillp, f)
+
+    val_hr, rfh = expand_field(val_hr, rfh, fill_hr, vmin_hr, vmax_hr)
+    val_lr, rfl = expand_field(val_lr, rfl, fill_lr, vmin_lr, vmax_lr)
+    evald = _expand(evald, f) & coarse_pt
+    return val_hr, val_lr, evald, rfh, rfl
+
+
+# ------------------------------------------------------------------------
+def sil_null_axis(calib_np: np.ndarray, mat: np.ndarray) -> Optional[int]:
+    """Lattice axis along which the projected uv is constant, or None."""
+    J = np.asarray(calib_np)[0, :2, :3] @ np.diag(np.diag(mat[:3, :3]))
+    null_axes = np.where(np.abs(J).sum(axis=0) == 0.0)[0]
+    return int(null_axes[0]) if len(null_axes) else None
+
+
+def _sil_dilate(mask: torch.Tensor, dilate: int) -> torch.Tensor:
+    """Max-window dilation of an [H, W, 1] mask over a (2d+1)^2 window
+    (padding counts as -inf)."""
+    if dilate <= 0:
+        return mask
+    m = F.max_pool2d(mask.permute(2, 0, 1)[None], 2 * dilate + 1,
+                     stride=1, padding=dilate)
+    return m[0].permute(1, 2, 0)
+
+
+def _sil_hit_lattice(mask, calib, L: int, mat_l: np.ndarray,
+                     null_axis: int) -> torch.Tensor:
+    """[L, L, L] bool visual-hull hits of an already dilated mask."""
+    dev = mask.device
+    axes = [a for a in range(3) if a != null_axis]
+    ii = torch.arange(L, dtype=torch.float32, device=dev)
+    coords = [torch.zeros(L * L, device=dev)] * 3
+    coords[axes[0]] = ii.repeat_interleave(L)
+    coords[axes[1]] = ii.repeat(L)
+    scale = torch.tensor(np.diag(mat_l[:3, :3]), dtype=torch.float32,
+                         device=dev)
+    offset = torch.tensor(mat_l[:3, 3], dtype=torch.float32, device=dev)
+    pts = torch.stack(coords) * scale[:, None] + offset[:, None]
+    xyz = orthogonal(pts[None], calib)
+    uv = xyz[:, :2, :].transpose(1, 2)
+    hit2 = grid_sample_points(mask[None], uv)[0, :, 0] > 0.0
+    shape = [1, 1, 1]
+    shape[axes[0]] = L
+    shape[axes[1]] = L
+    return hit2.reshape(shape).expand(L, L, L)
+
+
+def silhouette_masks(mask, calib_np: np.ndarray, R: int, mat: np.ndarray,
+                     schedule, dilate: int, device):
+    """Per-level visual-hull masks: ({stride: [L,L,L] lattice hits},
+    {stride: [L-1]^3 next-level cell-center hits})."""
+    null_axis = sil_null_axis(calib_np, mat)
+    if null_axis is None:
+        raise ValueError(
+            "silhouette pruning needs the 2-D projection fast path (an "
+            "orthographic lattice axis)")
+    mask = torch.as_tensor(mask, dtype=torch.float32, device=device)
+    if mask.dim() == 2:
+        mask = mask[..., None]
+    mask = _sil_dilate(mask, dilate)
+    calib = torch.as_tensor(np.asarray(calib_np), dtype=torch.float32,
+                            device=device)
+    lat: Dict = {}
+    center: Dict = {}
+    for reso in schedule:
+        L = R // reso
+        mat_l = mat.copy()
+        mat_l[:3, :3] = mat[:3, :3] * reso
+        lat[reso] = _sil_hit_lattice(mask, calib, L, mat_l, null_axis)
+        if reso > 1:
+            mat_c = mat_l.copy()
+            mat_c[:3, 3] = mat_c[:3, 3] + np.diag(mat[:3, :3]) * (reso // 2)
+            center[reso] = _sil_hit_lattice(mask, calib, L - 1, mat_c,
+                                            null_axis)
+    return lat, center
+
+
+# ------------------------------------------------------------------------
+def eval_grid_octree(eval_fn: EvalFn, resolution: int, mat: np.ndarray,
+                     threshold: float, init_resolution: int = 64,
+                     num_samples: int = 50000, device=None,
+                     silhouette=None, silhouette_calib=None,
+                     silhouette_dilate: int = 3,
+                     stats: Optional[Dict] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate the (hr, lr) occupancy fields over the R^3 grid with the
+    index->world affine ``mat``; returns two [R, R, R] float32 tensors
+    on ``device``. ``stats["queries"]`` counts the points evaluated."""
+    R = resolution
+    mat = np.asarray(mat)
+    device = torch.device("cpu" if device is None else device)
+    schedule = level_schedule(R, init_resolution)
+    lats = centers = None
+    if silhouette is not None:
+        lats, centers = silhouette_masks(
+            silhouette, np.asarray(silhouette_calib), R, mat, schedule,
+            silhouette_dilate, device)
+    offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=device)
+    L = R // schedule[0]
+    val_hr = torch.zeros((L,) * 3, device=device)
+    val_lr = torch.zeros((L,) * 3, device=device)
+    evald = torch.zeros((L,) * 3, dtype=torch.bool, device=device)
+    rfh = torch.zeros_like(evald)
+    rfl = torch.zeros_like(evald)
+    queries = 0
+    for reso in schedule:
+        L = R // reso
+        dirty = ~evald & ~rfh & ~rfl
+        if lats is not None:
+            dirty = dirty & lats[reso]
+        idx = torch.nonzero(dirty.reshape(-1)).squeeze(1)
+        scale = torch.tensor(np.diag(mat[:3, :3]) * reso,
+                             dtype=torch.float32, device=device)
+        flat_hr = val_hr.view(-1)
+        flat_lr = val_lr.view(-1)
+        for c0 in range(0, idx.numel(), num_samples):
+            ids = idx[c0:c0 + num_samples]
+            ijk = torch.stack([ids // (L * L), (ids // L) % L, ids % L])
+            pts = ijk.float() * scale[:, None] + offset[:, None]
+            hr, lr = eval_fn(pts)
+            flat_hr[ids] = hr
+            flat_lr[ids] = lr
+        queries += idx.numel()
+        if reso <= 1:
+            break
+        val_hr, val_lr, evald, rfh, rfl = _prune_upsample(
+            reso, threshold, val_hr, val_lr, evald, rfh, rfl, dirty,
+            centers[reso] if centers is not None else None)
+    if stats is not None:
+        stats["queries"] = stats.get("queries", 0) + queries
+    return val_hr, val_lr

@@ -1,0 +1,22 @@
+"""OBJ writer (counterpart of ``save_obj_mesh``,
+``surs_tpu/recon/mesh_io.py:26-37``): byte-identical output, '%.4f'
+vertices and faces written with the reference's winding swap
+``f v0 v2 v1`` (1-based). The formatting is one %-operation over the
+whole array instead of one per line: a 512^3 mesh has millions of
+lines."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def save_obj_mesh(path: str, verts, faces) -> None:
+    verts = np.asarray(verts, dtype=np.float64).reshape(-1, 3)
+    faces = np.asarray(faces, dtype=np.int64).reshape(-1, 3)
+    v_txt = ("v %.4f %.4f %.4f\n" * verts.shape[0]) % tuple(
+        verts.ravel().tolist())
+    f_txt = ("f %d %d %d\n" * faces.shape[0]) % tuple(
+        (faces[:, [0, 2, 1]] + 1).ravel().tolist())
+    with open(path, "w") as f:
+        f.write(v_txt)
+        f.write(f_txt)
