@@ -5,34 +5,53 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  1. build:   compile every CUDA kernel of the serving path with nvcc from
-              the repository's sources (one nvcc per source, in parallel).
+  1. build:   compile every CUDA kernel (K1 and K2 share one source) with
+              nvcc from the repository's sources (one nvcc per source, in
+              parallel), with ptxas' registers and spills per kernel.
   2. k1:      kernel K1 (fused dual MLP) against its plain PyTorch version
               on the card, at the serving shapes (N = 50,000 and a ragged
               49,999; the (256, 65) input split; full widths), in bf16 and
               float32, with the kernel's and the plain version's times and
               the card's bound for the same work.
-  3. serve:   SuRSService at the reference model's full width (loadSize
+  3. k2:      kernel K2 (the training variant, float32) against its plain
+              version at the training shapes (N = B * num_sample_inout =
+              12,000 and a ragged 11,999; a mask with zeros), with times
+              and bound as for K1.
+  4. serve:   SuRSService at the reference model's full width (loadSize
               512, hg_dim 256, 3 lr stacks, the reference MLPs; seeded
               random weights) reconstructs 3 synthetic subjects at 512^3
               with silhouette pruning; K1's launch count is zeroed just
               before and read just after.
-  4. check:   the card's results against references: the served query
+  5. check:   the card's results against references: the served query
               path against the model's float32 reference chain at full
               width, a full-resolution field's range, and a small float32
               service on the card against the same service on the CPU.
-  5. stages:  one subject's time by stage (encode, evaluate, extract,
+  6. stages:  one subject's time by stage (encode, evaluate, extract,
               write).
+  7. train:   train/loop.train at full width (batch 2, 6,000 points,
+              --fused_train, bf16 trunk) on one synthetic batch repeated:
+              1 warm-up step and 5 timed ones; K2's launch count is zeroed
+              just before and read just after (3 per step, one per lr
+              stack); the loss must fall.
+  8. train_check: from one state with a float32 trunk, the fused step's
+              gradients against the plain step's, tensor by tensor; and
+              the trainer's last checkpoint restored into a fresh state
+              on the card equals the state it saved.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit as
-nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
-Exits non-zero without a result when no CUDA device is present.
+``--phases`` runs a subset (for debugging; the result line then says
+which ran). Then a ``{"kernels": [...]}`` line, the card's name and
+power limit as nvidia-smi reports them, and last
+``{"ok": true, "device": {...}}``. Exits non-zero without a result when
+no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -42,9 +61,10 @@ import numpy as np
 
 SEED = 3
 N_MAIN = 50_000
-# published dense peaks of an H100 SXM and its memory rate
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-HBM_BYTES_PER_S = 3.35e12
+# training: batch 2 x num_sample_inout 6,000 points per K2 launch
+TRAIN_BATCH, TRAIN_POINTS = 2, 6_000
+N_TRAIN = TRAIN_BATCH * TRAIN_POINTS
+TRAIN_STEPS = 6                  # 1 warm-up + 5 timed
 # K1 against its plain version, max |difference| of pred_hr and pred_lr.
 # bf16: both round the input, every activation and pred_lr to bf16 and
 # sum in float32; only the summation order differs, which can flip a
@@ -52,6 +72,16 @@ HBM_BYTES_PER_S = 3.35e12
 # float32: the same products summed in another order, ~1e-7 relative per
 # sum of ~1000 terms, on outputs in [0, 1].
 K1_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
+# K2 against its plain version, float32 weights and inputs: as K1's
+# float32 case (the same products summed in another order)
+K2_TOL = 1e-5
+# fused vs plain step gradients, float32 trunk, per tensor, relative
+# norm error. Both compute the same float32 function: the MLP outputs
+# differ by summation order (~1e-7 relative, K2 vs cuBLAS), and cuDNN's
+# convolution backward may accumulate in another order from run to run.
+# 1e-4 leaves a margin of ~100x over that, while a wrong gradient path
+# (mask, cross-wiring, a missing term) is off by O(1).
+GRAD_TOL = 1e-4
 # the served path (bf16 weights and features) against the model's float32
 # reference chain: bf16 rounds weights and activations (2^-9 relative)
 # at each of five layers per MLP
@@ -63,21 +93,6 @@ F32_SERVICE_TOL = 1e-4
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def k1_work(dims_lr, dims_hr, n: int, dtype: str):
-    """(flops, bytes) K1 must do for n points: real MAC counts of both
-    MLPs, each input byte read once, weights once, outputs written once."""
-    macs = 0
-    weights = 0
-    for dims in (dims_lr, dims_hr):
-        for i in range(len(dims) - 1):
-            fan_in = dims[i] + (dims[0] if i in (2, 3, 4) else 0)
-            macs += fan_in * dims[i + 1]
-            weights += fan_in * dims[i + 1]
-    wbytes = 2 if dtype == "bfloat16" else 4
-    nbytes = n * dims_lr[0] * 4 + weights * wbytes + n * 2 * 4
-    return 2.0 * macs * n, float(nbytes)
 
 
 def time_cuda(fn, reps: int, warm: int = 2) -> float:
@@ -97,34 +112,69 @@ def time_cuda(fn, reps: int, warm: int = 2) -> float:
     return float(np.median(times))
 
 
+KERNELS = ("fused_dual_mlp_bf16_kernel", "fused_dual_mlp_f32_kernel",
+           "fused_dual_mlp_train_f32_kernel")
+
+
+def ptxas_report(log: str):
+    """{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}}
+    from nvcc's -Xptxas -v output."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((k for k in KERNELS if k in ln), None)
+            if cur:
+                out[cur] = {}
+        elif cur and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            out[cur].update(spill_stores=int(st), spill_loads=int(ld))
+        elif cur and "registers" in ln:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  ln).group(1))
+    return out
+
+
 def phase_build():
     from surs_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
+    # a clean build from the checkout's sources, with its ptxas report
+    shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     cuda_build.build(["fused_dual_mlp"])
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, (_, log) in cuda_build.BUILD_LOG.items()}
+    ptxas = {}
+    for _, log in cuda_build.BUILD_LOG.values():
+        ptxas.update(ptxas_report(log))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
+    missing = [k for k in KERNELS if k not in ptxas]
+    if missing:
+        raise AssertionError(f"no ptxas report for {missing}")
 
 
-def phase_k1():
+def kernel_mlps():
+    """The reference-width MLP pair on the card, seeded, with
+    larger-than-init weights so that the outputs spread over (0, 1)."""
     import torch
     from surs_tpu_torch.models.layers import init_weights
     from surs_tpu_torch.models.surface_classifier import SurfaceClassifier
     from surs_tpu_torch.ops import fused_mlp as fm
 
     gen = torch.Generator().manual_seed(SEED)
-    mlp_lr = SurfaceClassifier(fm.KERNEL_DIMS_LR)
-    mlp_hr = SurfaceClassifier(fm.KERNEL_DIMS_HR)
-    init_weights(mlp_lr, gen)
-    init_weights(mlp_hr, gen)
-    # larger-than-init weights so the outputs spread over (0, 1)
-    with torch.no_grad():
-        for p in list(mlp_lr.parameters()) + list(mlp_hr.parameters()):
-            p.mul_(3.0)
-    mlp_lr.cuda()
-    mlp_hr.cuda()
+    mlps = (SurfaceClassifier(fm.KERNEL_DIMS_LR),
+            SurfaceClassifier(fm.KERNEL_DIMS_HR))
+    for m in mlps:
+        init_weights(m, gen)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.mul_(3.0)
+    return tuple(m.cuda() for m in mlps)
+
+
+def phase_k1():
+    import torch
+    from surs_tpu_torch import roofline
+    from surs_tpu_torch.ops import fused_mlp as fm
+
+    mlp_lr, mlp_hr = kernel_mlps()
     rng = np.random.default_rng(SEED)
     results = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
@@ -146,17 +196,13 @@ def phase_k1():
                    "max_abs_err": err, "tol": K1_TOL[dtype_name],
                    "pred_hr_range": [hr.min().item(), hr.max().item()]}
             if n == N_MAIN:
-                flops, nbytes = k1_work(fm.KERNEL_DIMS_LR,
-                                        fm.KERNEL_DIMS_HR, n, dtype_name)
-                t_op = flops / PEAK_FLOPS[dtype_name] * 1e3
-                t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+                flops, nbytes = roofline.k1_work(n, dtype_name)
+                b_ms, b_by = roofline.bound(flops, nbytes, dtype_name)
                 rec.update(
                     ms=time_cuda(lambda: fm.fused_dual_mlp(parts, fw), 20),
                     plain_ms=time_cuda(
                         lambda: fm.fused_dual_mlp_ref(parts, fw), 5),
-                    bound_ms=max(t_op, t_mem),
-                    bound_by="operations" if t_op >= t_mem else "bytes",
-                    gflop=flops / 1e9)
+                    bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
                 rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
             emit(rec)
             results[(dtype_name, n)] = rec
@@ -164,6 +210,50 @@ def phase_k1():
                 raise AssertionError(f"K1 disagrees with its plain version: "
                                      f"{rec}")
     return results
+
+
+def phase_k2():
+    """K2 (float32) against its plain version at the training shapes."""
+    import torch
+    from surs_tpu_torch import roofline
+    from surs_tpu_torch.ops import fused_mlp as fm
+
+    fw = fm.prepare_fused_weights(*kernel_mlps(), dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 1)
+    out = {}
+    for n in (N_TRAIN, N_TRAIN - 1):
+        xa, xb = (torch.from_numpy(rng.standard_normal((n, 321)).astype(
+            np.float32)).cuda() for _ in range(2))
+        mask = torch.from_numpy((rng.random(n) > 0.3).astype(
+            np.float32)).cuda()
+        hr, lr = fm.fused_dual_mlp_train(xa, xb, mask, fw)
+        torch.cuda.synchronize()
+        ref_hr, ref_lr = fm.fused_dual_mlp_train_ref(xa, xb, mask, fw)
+        ok = bool(torch.isfinite(hr).all() and torch.isfinite(lr).all())
+        err = max((hr - ref_hr).abs().max().item(),
+                  (lr - ref_lr).abs().max().item())
+        rec = {"phase": "k2", "dtype": "float32", "n": n,
+               "mask_zeros": int((mask == 0).sum().item()),
+               "max_abs_err": err, "tol": K2_TOL,
+               "pred_hr_range": [hr.min().item(), hr.max().item()],
+               "pred_lr_range": [lr.min().item(), lr.max().item()]}
+        if n == N_TRAIN:
+            flops, nbytes = roofline.k2_work(n)
+            b_ms, b_by = roofline.bound(flops, nbytes, "float32")
+            rec.update(
+                ms=time_cuda(lambda: fm.fused_dual_mlp_train(xa, xb, mask,
+                                                             fw), 20),
+                plain_ms=time_cuda(lambda: fm.fused_dual_mlp_train_ref(
+                    xa, xb, mask, fw), 20),
+                bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
+                library_ms=None)
+            rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+        emit(rec)
+        out[n] = rec
+        if not ok or not err <= K2_TOL or rec["mask_zeros"] == 0:
+            raise AssertionError(f"K2 disagrees with its plain version: "
+                                 f"{rec}")
+    return out
 
 
 def synthetic_subject(i: int, S: int = 256):
@@ -317,7 +407,235 @@ def phase_stages(service, subjects, out_dir: str):
           "faces": [len(f) for _, f in meshes]})
 
 
+# ------------------------------------------------------------- training --
+class RepeatedItems:
+    """``len(items) * times`` items cycling through ``items``."""
+
+    def __init__(self, items, times: int):
+        self.items, self.times = items, times
+
+    def __len__(self):
+        return len(self.items) * self.times
+
+    def __getitem__(self, i):
+        return self.items[i % len(self.items)]
+
+
+def train_items(cfg, seed: int = SEED):
+    """One batch of training items in the dataset's format, from a seed:
+    an image with an ellipse silhouette (LR at loadSize/2, HR at
+    loadSize), the eval calibration, sample points in the +-0.5 box and
+    occupancy labels of an ellipsoid (labels_disp: the HR occupancy at
+    the LR samples, as the dataset defines it)."""
+    rng = np.random.default_rng(seed)
+    S, N = cfg.loadSize // 2, cfg.num_sample_inout
+    yy, xx = np.mgrid[:S, :S]
+    axes = np.array([0.18, 0.40, 0.15])
+
+    def inside(p):
+        return (((p / axes[:, None]) ** 2).sum(0) < 1).astype(np.float32)
+
+    items = []
+    for i in range(cfg.batch_size):
+        sil = ((((xx - S / 2) / (S * 0.18)) ** 2
+                + ((yy - S / 2) / (S * 0.40)) ** 2) < 1)[..., None]
+        img_lr = ((rng.random((S, S, 3)) * 2 - 1) * sil).astype(np.float32)
+        img_hr = np.repeat(np.repeat(img_lr, 2, 0), 2, 1)
+        pts_hr = rng.uniform(-0.5, 0.5, (3, N)).astype(np.float32)
+        pts_lr = rng.uniform(-0.5, 0.5, (3, N)).astype(np.float32)
+        items.append({
+            "name": f"synthetic{i}", "img_LR": img_lr, "img_HR": img_hr,
+            "calib": np.diag([2.0, -2.0, 2.0, 1.0]).astype(np.float32),
+            "samples_HR": pts_hr, "samples_LR": pts_lr,
+            "labels_HR": inside(pts_hr)[None],
+            "labels_disp": inside(pts_lr)[None]})
+    return items
+
+
+def train_config(root: str):
+    return full_width_config(
+        batch_size=TRAIN_BATCH, num_sample_inout=TRAIN_POINTS,
+        fused_train=True, no_gen_mesh=True, freq_save_ply=0, freq_plot=5,
+        num_epoch=1, checkpoints_path=os.path.join(root, "checkpoints"),
+        results_path=os.path.join(root, "results"), name="smoke")
+
+
+def phase_train(root: str, device: str = "cuda"):
+    import torch
+    from surs_tpu_torch.data.loader import DataLoader
+    from surs_tpu_torch.ops.fused_mlp import fused_dual_mlp_train
+    from surs_tpu_torch.train.loop import train
+
+    cfg = train_config(root)
+    items = train_items(cfg)
+    loader = DataLoader(RepeatedItems(items, TRAIN_STEPS),
+                        batch_size=TRAIN_BATCH, shuffle=False)
+    marks, held = [], {}
+
+    def on_step(state, metrics):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), float(metrics["total"])))
+        held["state"] = state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_dual_mlp_train.launches = 0    # main path starts here
+    t0 = time.perf_counter()
+    out = train(cfg, loader, max_iters=TRAIN_STEPS, device=device,
+                on_step=on_step)
+    torch.cuda.synchronize()
+    launches = fused_dual_mlp_train.launches   # main path ends here
+    times = np.diff([t0] + [t for t, _ in marks])
+    losses = [loss for _, loss in marks]
+    rec = {"phase": "train", "batch": TRAIN_BATCH, "points": TRAIN_POINTS,
+           "loadSize": cfg.loadSize, "num_stack_lr": cfg.num_stack_lr,
+           "trunk_dtype": str(held["state"].model.super_resolution
+                              .compute_dtype),
+           "steps": out["iters"], "k2_launches": launches,
+           "warmup_s": float(times[0]),
+           "seconds_per_step": float(np.median(times[1:])),
+           "step_s": [float(t) for t in times],
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "wall_s": out["wall_sec"],
+           "save_s": out["save_sec"]}
+    emit(rec)
+    if not (out["iters"] == TRAIN_STEPS and launches == 3 * TRAIN_STEPS
+            and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train failed: {rec}")
+    return cfg, items, held["state"], rec
+
+
+def phase_train_check(cfg, items, trained, device: str = "cuda"):
+    import dataclasses
+    import torch
+    from surs_tpu_torch.data.loader import collate
+    from surs_tpu_torch.models.surs_net import surs_net_from_config
+    from surs_tpu_torch.config import resolve_config
+    from surs_tpu_torch.train.checkpoint import CheckpointManager
+    from surs_tpu_torch.train.fused_step import fused_train_loss
+    from surs_tpu_torch.train.loop import batch_to_device
+    from surs_tpu_torch.train.optim import make_optimizer
+    from surs_tpu_torch.train.step import (create_train_state,
+                                           denormalize_images, train_loss)
+
+    rec = {"phase": "train_check"}
+    # (a) fused vs plain gradients from one float32 state
+    cfg = resolve_config(cfg, device)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = surs_net_from_config(cfg32, device).train()
+    batch = denormalize_images(batch_to_device(collate(items), device,
+                                               quantize_images=True))
+
+    def grads(loss_fn):
+        model.zero_grad(set_to_none=True)
+        total, (errors, _, _) = loss_fn(model, batch)
+        total.backward()
+        return ({n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()},
+                {k: v.item() for k, v in errors.items()})
+
+    g_plain, e_plain = grads(train_loss)
+    g_again, _ = grads(train_loss)
+    g_fused, e_fused = grads(fused_train_loss)
+
+    def rel(a, b):
+        worst = (0.0, None)
+        for n in b:
+            d, s = float((a[n] - b[n]).norm()), float(b[n].norm())
+            r = d / s if s > 0 else (0.0 if d == 0 else float("inf"))
+            worst = max(worst, (r, n))
+        return worst
+
+    worst, rec["worst_tensor"] = rel(g_fused, g_plain)
+    rec.update(grad_rel_err=worst, grad_tol=GRAD_TOL,
+               plain_repeat_rel_err=rel(g_again, g_plain)[0],
+               tensors=len(g_plain), loss_fused=e_fused["total"],
+               loss_plain=e_plain["total"])
+    del model, g_plain, g_again, g_fused
+    # (b) the trainer's last checkpoint, restored into a fresh state
+    fresh = surs_net_from_config(cfg, device, seed=SEED + 7)
+    state = create_train_state(fresh, make_optimizer(cfg, fresh.parameters()))
+    CheckpointManager(cfg.checkpoints_path, cfg.name).restore(state)
+    want_p = trained.model.state_dict()
+    same = state.step == trained.step and all(
+        torch.equal(v, want_p[k]) for k, v in state.model.state_dict().items())
+    got_o = state.optimizer.state_dict()["state"]
+    want_o = trained.optimizer.state_dict()["state"]
+    same = same and sorted(got_o) == sorted(want_o) and all(
+        torch.equal(got_o[i][k].float(), want_o[i][k].float())
+        for i in want_o for k in want_o[i])
+    rec.update(checkpoint_roundtrip_equal=bool(same),
+               checkpoint_step=state.step)
+    emit(rec)
+    if not (worst <= GRAD_TOL and same
+            and abs(e_fused["total"] - e_plain["total"])
+            <= 1e-5 * abs(e_plain["total"])):
+        raise AssertionError(f"train_check failed: {rec}")
+
+
+def phase_train_profile(cfg, items, trained, steps: int = 3):
+    """Device time by kernel over ``steps`` fused steps from the trained
+    state (torch.profiler, CUDA activity), and the device's busy share
+    of the steps' wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from surs_tpu_torch.data.loader import collate
+    from surs_tpu_torch.train.fused_step import make_fused_train_step
+    from surs_tpu_torch.train.loop import batch_to_device
+
+    step = make_fused_train_step(trained.model, trained.optimizer)
+    batch = batch_to_device(collate(items), "cuda", quantize_images=True)
+    state, _ = step(trained, batch)                 # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per, launches, host, spans = {}, 0, {}, {}
+    for ev in prof.key_averages():
+        ms = ev.self_device_time_total / 1e3 / steps
+        if ev.device_type != DeviceType.CUDA:
+            if ev.key.startswith(("Optimizer.step", "_FusedDualMLPTrain")):
+                host[ev.key.split("#")[0]] = ev.cpu_time_total / 1e3 / steps
+        elif ev.is_user_annotation:    # a host range mirrored on the card
+            spans[ev.key.split("#")[0]] = ms
+        else:                          # kernels, copies, sets
+            per[ev.key] = ms
+            launches += ev.count
+    busy = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    k2_ms = sum(v for k, v in per.items() if "fused_dual_mlp_train" in k)
+    rec = {"phase": "train_profile", "steps": steps,
+           "wall_ms_per_step": wall * 1e3 / steps,
+           "device_ms_per_step": busy,
+           "device_busy_share": busy / (wall * 1e3 / steps),
+           "device_ops_per_step": launches / steps,
+           "k2_ms_per_step": k2_ms, "host_ms_per_step": host,
+           "device_span_ms_per_step": spans,
+           "top_device_ms_per_step": [[k[:80], v] for k, v in top]}
+    emit(rec)
+    if busy <= 0 or k2_ms <= 0:
+        raise AssertionError(f"the profile saw no device time: {rec}")
+
+
+PHASES = ("build", "k1", "k2", "serve", "check", "stages", "train",
+          "train_check")
+# run only when named in --phases
+EXTRA_PHASES = ("train_profile",)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + EXTRA_PHASES))
+    phases = ap.parse_args().phases.split(",")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -326,12 +644,29 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    k1 = phase_k1()
+    k1 = phase_k1() if "k1" in phases else None
+    k2 = phase_k2() if "k2" in phases else None
+    serve = tr = None
     with tempfile.TemporaryDirectory() as out_dir:
-        service, subjects, serve = phase_serve(out_dir)
-        phase_check(service, subjects)
-        phase_stages(service, subjects, out_dir)
+        if "serve" in phases:
+            service, subjects, serve = phase_serve(out_dir)
+            if "check" in phases:
+                phase_check(service, subjects)
+            if "stages" in phases:
+                phase_stages(service, subjects, out_dir)
+            del service
+            torch.cuda.empty_cache()
+        if "train" in phases:
+            cfg, items, trained, tr = phase_train(out_dir)
+            if "train_check" in phases:
+                phase_train_check(cfg, items, trained)
+            if "train_profile" in phases:
+                phase_train_profile(cfg, items, trained)
+    if set(phases) != set(PHASES):
+        emit({"partial": phases})
+        return 0
     main_rec = k1[("bfloat16", N_MAIN)]
+    k2_rec = k2[N_TRAIN]
     emit({"kernels": [{
         "name": "fused_dual_mlp",
         "route": "cuda",
@@ -344,6 +679,18 @@ def main() -> int:
         "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"],
         "bound_by": main_rec["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_dual_mlp_train",
+        "route": "cuda",
+        "source": "surs_tpu_torch/csrc/fused_dual_mlp.cu",
+        "replaces": "surs_tpu/ops/fused_mlp.py:313",
+        "launches": tr["k2_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+        "ms": k2_rec["ms"],
+        "plain_ms": k2_rec["plain_ms"],
+        "bound_ms": k2_rec["bound_ms"],
+        "bound_by": k2_rec["bound_by"],
         "library_ms": None,
     }]})
     smi = subprocess.run(

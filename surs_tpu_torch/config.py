@@ -206,6 +206,9 @@ _UNPORTED = {
     ("mc_backend", "sharded"): "A13 multi-device",
     ("use_octree", False): "A8 dense evaluation (kernel K3)",
     ("with_color", True): "A11 color branch",
+    ("norm", "batch"): "A16 batch-norm trunks",
+    ("remat", True): "A19 training remainder (remat)",
+    ("remat_encoder", True): "A19 training remainder (remat)",
 }
 _PORTED = {
     "dtype": ("float32", "bfloat16"),

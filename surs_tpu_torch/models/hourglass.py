@@ -52,6 +52,7 @@ class HGFilter(nn.Module):
         super().__init__()
         self.num_stack = num_stack
         self.down_type = down_type
+        self.compute_dtype = torch.float32
         if down_type == "high_res":
             self.conv5 = conv(in_ch, last_ch, 1)
             return
@@ -71,9 +72,8 @@ class HGFilter(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x [B, H, W, C] -> list of [B, H, W, last_ch] (one per stack),
-        in the dtype of the parameters."""
-        dt = next(self.parameters()).dtype
-        x = x.permute(0, 3, 1, 2).to(dt)
+        in ``compute_dtype``."""
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1).contiguous()

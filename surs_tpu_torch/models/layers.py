@@ -5,6 +5,13 @@ Inside the trunk tensors are NCHW. Submodules carry the Flax module
 names, so a Flax param path maps onto a state_dict key by joining with
 dots (compat/flax_import.py). Padding is explicit and symmetric, as in
 the reference.
+
+Parameters stay float32 and the trunk computes in the dtype of its
+input, as Flax's ``dtype=`` does (``surs_tpu/models/layers.py:26-62``):
+a convolution casts its weight and bias to the input's dtype at use, and
+GroupNorm normalises in float32 and rounds its output to the input's
+dtype. Training therefore updates float32 master weights under a bf16
+trunk.
 """
 
 from __future__ import annotations
@@ -14,11 +21,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in its input's dtype (parameters cast at use)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-         pad: int = 0, use_bias: bool = True) -> nn.Conv2d:
+         pad: int = 0, use_bias: bool = True) -> Conv2d:
     """Conv2d with explicit torch-style padding."""
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=pad,
-                     bias=use_bias)
+    return Conv2d(in_ch, out_ch, kernel, stride=stride, padding=pad,
+                  bias=use_bias)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -49,7 +64,8 @@ class Norm(nn.Module):
         self.gn = nn.GroupNorm(32, channels, eps=1e-5)
 
     def forward(self, x):
-        return self.gn(x)
+        return F.group_norm(x.float(), 32, self.gn.weight, self.gn.bias,
+                            self.gn.eps).to(x.dtype)
 
 
 class ConvBlock(nn.Module):

@@ -47,6 +47,7 @@ class SuRSSR(nn.Module):
         self.residual = residual
         self.scale = scale
         self.n_block = tuple(n_block)
+        self.compute_dtype = torch.float32
         for name, cin, cout, stride in self._UNITS:
             self.add_module(name, ConvLReLU(cin, cout, stride))
         self.last_1 = conv(32, 3, 3, pad=1)
@@ -63,9 +64,8 @@ class SuRSSR(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x [B, S, S, 3] -> (img_sr, f_lr, f_hr), NHWC; the trunk runs
-        in the dtype of its parameters."""
-        dt = self.last_1.weight.dtype
-        x = x.permute(0, 3, 1, 2).to(dt)
+        in ``compute_dtype``, img_sr comes back float32."""
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         h = self.head(bicubic_upsample(x, self.scale, align_corners=False))
         d1 = self._body(1, self.down1(h))
         d1f = self.tail1_1(self.tail1_0(d1))

@@ -3,7 +3,7 @@
 vertices and faces written with the reference's winding swap
 ``f v0 v2 v1`` (1-based). The formatting is one %-operation over the
 whole array instead of one per line: a 512^3 mesh has millions of
-lines."""
+lines. Also the training loop's colored PLY dump of occupancy samples."""
 
 from __future__ import annotations
 
@@ -20,3 +20,23 @@ def save_obj_mesh(path: str, verts, faces) -> None:
     with open(path, "w") as f:
         f.write(v_txt)
         f.write(f_txt)
+
+
+_PLY_HEADER = ("ply\nformat ascii 1.0\nelement vertex {:d}\n"
+               "property float x\nproperty float y\nproperty float z\n"
+               "property uchar red\nproperty uchar green\n"
+               "property uchar blue\nend_header")
+
+
+def save_samples_truncted_prob(path: str, points, prob) -> None:
+    """Colored PLY of occupancy samples, red where prob > 0.5 and green
+    where prob < 0.5 (counterpart of ``save_samples_truncted_prob``,
+    ``surs_tpu/recon/mesh_io.py:70``)."""
+    points = np.asarray(points)
+    prob = np.asarray(prob)
+    r = (prob > 0.5).reshape(-1, 1) * 255
+    g = (prob < 0.5).reshape(-1, 1) * 255
+    b = np.zeros(r.shape)
+    data = np.concatenate([points, r, g, b], axis=-1)
+    np.savetxt(path, data, fmt="%.6f %.6f %.6f %d %d %d", comments="",
+               header=_PLY_HEADER.format(points.shape[0]))
