@@ -5,9 +5,10 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  1. build:   compile every CUDA kernel (K1 and K2 share one source) with
-              nvcc from the repository's sources (one nvcc per source, in
-              parallel), with ptxas' registers and spills per kernel.
+  1. build:   compile every CUDA kernel (K1 and K2 share one source, K3
+              and K4 another) with nvcc from the repository's sources (one
+              nvcc per source, in parallel), with ptxas' registers and
+              spills per kernel.
   2. k1:      kernel K1 (fused dual MLP) against its plain PyTorch version
               on the card, at the serving shapes (N = 50,000 and a ragged
               49,999; the (256, 65) input split; full widths), in bf16 and
@@ -17,23 +18,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
               version at the training shapes (N = B * num_sample_inout =
               12,000 and a ragged 11,999; a mask with zeros), with times
               and bound as for K1.
-  4. serve:   SuRSService at the reference model's full width (loadSize
+  4. k3:      kernel K3 (column-shared dual MLP) against its plain version
+              on a slice of the dense 512^3 grid (1,024 columns x 512
+              depths and a ragged 1,023 x 500; the real depth features of
+              a 512 grid), in bf16 and float32; K3 timed on the whole grid
+              (262,144 columns x 512 depths, bf16), with the bound.
+  5. k4:      kernel K4 (window dual MLP) the same way at one chunk of the
+              runs evaluator (32,768 windows x 8 depths and a ragged
+              32,767; depth offsets of the 512 level), timed at 32,768.
+  6. serve:   SuRSService at the reference model's full width (loadSize
               512, hg_dim 256, 3 lr stacks, the reference MLPs; seeded
               random weights) reconstructs 3 synthetic subjects at 512^3
               with silhouette pruning; K1's launch count is zeroed just
               before and read just after.
-  5. check:   the card's results against references: the served query
+  7. check:   the card's results against references: the served query
               path against the model's float32 reference chain at full
               width, a full-resolution field's range, and a small float32
               service on the card against the same service on the CPU.
-  6. stages:  one subject's time by stage (encode, evaluate, extract,
+  8. stages:  one subject's time by stage (encode, evaluate, extract,
               write).
-  7. train:   train/loop.train at full width (batch 2, 6,000 points,
+  9. dense:   SuRSService(use_octree=False) serves one subject at 512^3
+              through K3 (K3's and K1's launch counts zeroed just before
+              and read just after: K3 > 0, K1 = 0), with its time by
+              stage; K1 scores 50,000 random grid points of the subject
+              and they are held against the dense field.
+ 10. runs:    SuRSService(serve_octree_mode="runs") serves the 3 subjects
+              of `serve` through K4 (K4 > 0, K1 = 0), with one subject's
+              time by stage; then a float32 runs service and a float32
+              mono service at 128^3, full width, give the same fields
+              within 2e-4.
+ 11. train:   train/loop.train at full width (batch 2, 6,000 points,
               --fused_train, bf16 trunk) on one synthetic batch repeated:
               1 warm-up step and 5 timed ones; K2's launch count is zeroed
               just before and read just after (3 per step, one per lr
               stack); the loss must fall.
-  8. train_check: from one state with a float32 trunk, the fused step's
+ 12. train_check: from one state with a float32 trunk, the fused step's
               gradients against the plain step's, tensor by tensor; and
               the trainer's last checkpoint restored into a fresh state
               on the card equals the state it saved.
@@ -75,6 +94,25 @@ K1_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
 # K2 against its plain version, float32 weights and inputs: as K1's
 # float32 case (the same products summed in another order)
 K2_TOL = 1e-5
+# K3 and K4 against their plain versions: both round the features, every
+# activation and the depth term z * w_z to bf16 at the same points and
+# keep kf and pred_lr in float32; only the summation order differs (the
+# column terms are a 320-long FMA chain in the kernel, a blocked product
+# in the plain version), which can flip an activation's bf16 rounding
+# now and then, as for K1. float32: the same products in another order.
+COLS_TOL = {"bfloat16": K1_TOL["bfloat16"], "float32": 1e-5}
+# the float32 runs service against the float32 mono service at 128^3
+# (tests/test_evaluator_runs.py's tolerance): the window path feeds the
+# depth as kf + zt, the point path as one projected z, equal up to
+# float32 rounding, and a rounding-level change can move a pruned cell's
+# (max + min) / 2 fill by that much
+RUNS_VS_MONO_TOL = 2e-4
+# the dense phase's shapes: a slice of the 512^3 grid, and the grid
+DENSE_R = 512
+SLICE_COLS = 1024
+# the runs evaluator's chunk of windows, and its window depth
+NWIN = 32_768
+ZB = 8
 # fused vs plain step gradients, float32 trunk, per tensor, relative
 # norm error. Both compute the same float32 function: the MLP outputs
 # differ by summation order (~1e-7 relative, K2 vs cuBLAS), and cuDNN's
@@ -113,7 +151,10 @@ def time_cuda(fn, reps: int, warm: int = 2) -> float:
 
 
 KERNELS = ("fused_dual_mlp_bf16_kernel", "fused_dual_mlp_f32_kernel",
-           "fused_dual_mlp_train_f32_kernel")
+           "fused_dual_mlp_train_f32_kernel",
+           "fused_dual_mlp_cols_bf16_kernel", "fused_dual_mlp_cols_f32_kernel",
+           "fused_dual_mlp_runs_bf16_kernel", "fused_dual_mlp_runs_f32_kernel")
+SOURCES = ("fused_dual_mlp", "fused_cols_mlp")
 
 
 def ptxas_report(log: str):
@@ -139,11 +180,12 @@ def phase_build():
     t0 = time.perf_counter()
     # a clean build from the checkout's sources, with its ptxas report
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
-    cuda_build.build(["fused_dual_mlp"])
+    cuda_build.build(SOURCES)
     ptxas = {}
     for _, log in cuda_build.BUILD_LOG.values():
         ptxas.update(ptxas_report(log))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": {k: v[0] for k, v in cuda_build.BUILD_LOG.items()},
           "ptxas": ptxas})
     missing = [k for k in KERNELS if k not in ptxas]
     if missing:
@@ -255,6 +297,131 @@ def phase_k2():
                                  f"{rec}")
     return out
 
+def grid_depths(R: int = DENSE_R):
+    """The depth features zf [R] of the eval calibration's R^3 grid over
+    the +-0.5 box at full width (loadSize 512, z_size 200), computed on
+    the card as the column evaluators compute them."""
+    import torch
+    from surs_tpu_torch.ops.geometry import normalize_depth, orthogonal
+    from surs_tpu_torch.recon.grid import flat_index_to_world, grid_matrix
+    from surs_tpu_torch.recon.pipeline import eval_calibration
+
+    mat = grid_matrix((R,) * 3, [-0.5] * 3, [0.5] * 3)
+    pts = flat_index_to_world(torch.arange(R).cuda(), R, 1, mat)
+    calib = torch.from_numpy(eval_calibration(1)).cuda()
+    return normalize_depth(orthogonal(pts[None], calib)[0, 2, :], 512,
+                           200.0).contiguous()
+
+
+def seeded_features(rng, n: int):
+    import torch
+    return tuple(torch.from_numpy(rng.standard_normal((n, c)).astype(
+        np.float32)).cuda() for c in (256, 64))
+
+
+def check_cols_kernel(phase, kernel, plain, args, dtype_name, shape):
+    """One launch of a column kernel against its plain version."""
+    import torch
+    hr, lr = kernel(*args)
+    torch.cuda.synchronize()
+    ref_hr, ref_lr = plain(*args)
+    ok = bool(torch.isfinite(hr).all() and torch.isfinite(lr).all()
+              and tuple(hr.shape) == shape)
+    err = max((hr - ref_hr).abs().max().item(),
+              (lr - ref_lr).abs().max().item())
+    rec = {"phase": phase, "dtype": dtype_name, "shape": list(shape),
+           "max_abs_err": err, "tol": COLS_TOL[dtype_name],
+           "pred_hr_range": [hr.min().item(), hr.max().item()]}
+    if not ok or not err <= COLS_TOL[dtype_name]:
+        emit(rec)
+        raise AssertionError(f"{phase} disagrees with its plain version: "
+                             f"{rec}")
+    return rec
+
+
+def phase_k3():
+    """K3 against its plain version on a slice of the dense grid, in bf16
+    and float32; K3 and its plain version timed on the whole grid."""
+    import torch
+    from surs_tpu_torch import roofline
+    from surs_tpu_torch.ops import fused_mlp as fm
+
+    mlp_lr, mlp_hr = kernel_mlps()
+    rng = np.random.default_rng(SEED + 2)
+    zf = grid_depths()
+    recs = []
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        fw = fm.prepare_fused_weights(mlp_lr, mlp_hr, dtype=dtype)
+        for ncol, z in ((SLICE_COLS, DENSE_R), (SLICE_COLS - 1, 500)):
+            args = (*seeded_features(rng, ncol), zf[:z].contiguous(), fw)
+            rec = check_cols_kernel("k3", fm.fused_dual_mlp_cols,
+                                    fm.fused_dual_mlp_cols_ref, args,
+                                    dtype_name, (ncol, z))
+            if ncol == SLICE_COLS:
+                rec.update(
+                    ms_slice=time_cuda(lambda: fm.fused_dual_mlp_cols(*args),
+                                       5),
+                    plain_ms_slice=time_cuda(
+                        lambda: fm.fused_dual_mlp_cols_ref(*args), 3))
+            emit(rec)
+            recs.append(rec)
+    # the whole dense grid, bf16: the shape the dense path gives K3
+    fw = fm.prepare_fused_weights(mlp_lr, mlp_hr, dtype=torch.bfloat16)
+    ncol = DENSE_R * DENSE_R
+    args = (*seeded_features(rng, ncol), zf, fw)
+    flops, nbytes = roofline.k3_work(ncol, DENSE_R, "bfloat16")
+    b_ms, b_by = roofline.bound(flops, nbytes, "bfloat16")
+    grid = {"phase": "k3_grid", "dtype": "bfloat16", "shape": [ncol, DENSE_R],
+            "ms": time_cuda(lambda: fm.fused_dual_mlp_cols(*args), 3, warm=1),
+            "plain_ms": time_cuda(lambda: fm.fused_dual_mlp_cols_ref(*args),
+                                  1, warm=0),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            "library_ms": None}
+    grid["tflops"] = flops / (grid["ms"] * 1e-3) / 1e12
+    emit(grid)
+    return {"checks": recs, "grid": grid}
+
+
+def phase_k4():
+    """K4 against its plain version at one chunk of the runs evaluator,
+    in bf16 and float32, with the depth offsets of the 512 level."""
+    import torch
+    from surs_tpu_torch import roofline
+    from surs_tpu_torch.ops import fused_mlp as fm
+
+    mlp_lr, mlp_hr = kernel_mlps()
+    rng = np.random.default_rng(SEED + 3)
+    zf = grid_depths()
+    zt = zf[:ZB].contiguous()
+    kf_all = zf - zf[0]
+    recs, main = [], None
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        fw = fm.prepare_fused_weights(mlp_lr, mlp_hr, dtype=dtype)
+        for nr in (NWIN, NWIN - 1):
+            k0 = torch.from_numpy(rng.integers(0, DENSE_R // ZB, nr) * ZB)
+            kf = kf_all[k0.cuda()].contiguous()
+            args = (*seeded_features(rng, nr), kf, zt, fw)
+            rec = check_cols_kernel("k4", fm.fused_dual_mlp_runs,
+                                    fm.fused_dual_mlp_runs_ref, args,
+                                    dtype_name, (nr, ZB))
+            if nr == NWIN:
+                flops, nbytes = roofline.k4_work(nr, ZB, dtype_name)
+                b_ms, b_by = roofline.bound(flops, nbytes, dtype_name)
+                rec.update(
+                    ms=time_cuda(lambda: fm.fused_dual_mlp_runs(*args), 20),
+                    plain_ms=time_cuda(
+                        lambda: fm.fused_dual_mlp_runs_ref(*args), 5),
+                    bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
+                    library_ms=None)
+                rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+                if dtype_name == "bfloat16":
+                    main = rec
+            emit(rec)
+            recs.append(rec)
+    return {"checks": recs, "main": main}
+
 
 def synthetic_subject(i: int, S: int = 256):
     rng = np.random.default_rng(SEED + i)
@@ -269,10 +436,17 @@ def synthetic_subject(i: int, S: int = 256):
 
 def full_width_config(**kw):
     from surs_tpu_torch.config import SuRSConfig
-    return SuRSConfig(loadSize=512, hg_dim=256, num_stack_lr=3,
-                      resolution=512, mask_prune=True,
-                      b_min=[-0.5, -0.5, -0.5], b_max=[0.5, 0.5, 0.5],
-                      seed=SEED, **kw)
+    base = dict(loadSize=512, hg_dim=256, num_stack_lr=3, resolution=512,
+                mask_prune=True, b_min=[-0.5, -0.5, -0.5],
+                b_max=[0.5, 0.5, 0.5], seed=SEED)
+    return SuRSConfig(**{**base, **kw})
+
+
+def clear_objs(out_dir: str) -> None:
+    """Drop the phase's OBJ files (hundreds of MB at 512^3)."""
+    for f in os.listdir(out_dir):
+        if f.endswith(".obj"):
+            os.remove(os.path.join(out_dir, f))
 
 
 def phase_serve(out_dir: str):
@@ -371,7 +545,7 @@ def phase_check(service, subjects):
         raise AssertionError(f"check failed: {rec}")
 
 
-def phase_stages(service, subjects, out_dir: str):
+def phase_stages(service, subjects, out_dir: str, phase: str = "stages"):
     """One subject's wall time by stage, each ending in a synchronize."""
     import torch
     from surs_tpu_torch.recon.mesh_io import save_obj_mesh
@@ -392,19 +566,152 @@ def phase_stages(service, subjects, out_dir: str):
     stats = {}
     sdf_hr, sdf_lr, mat = service.rec.evaluate(
         feats_lr, feat_hr, eval_calibration(1), cfg.resolution, cfg.b_min,
-        cfg.b_max, num_samples=cfg.num_samples, threshold=cfg.threshold,
-        init_resolution=cfg.octree_init_resolution, silhouette=m,
-        stats=stats)
+        cfg.b_max, use_octree=cfg.use_octree, num_samples=cfg.num_samples,
+        threshold=cfg.threshold, init_resolution=cfg.octree_init_resolution,
+        silhouette=m, stats=stats)
     mark()
     meshes = list(service.rec.extract_pair(sdf_hr, sdf_lr, mat))
     mark()
     for name, (v, f) in zip(("HR", "LR"), meshes):
-        save_obj_mesh(os.path.join(out_dir, f"stages_{name}.obj"), v, f)
+        save_obj_mesh(os.path.join(out_dir, f"{phase}_{name}.obj"), v, f)
     mark()
     d = np.diff(t)
-    emit({"phase": "stages", "encode_s": d[0], "evaluate_s": d[1],
-          "extract_s": d[2], "write_s": d[3], "queries": stats["queries"],
-          "faces": [len(f) for _, f in meshes]})
+    rec = {"phase": phase, "mode": stats["mode"], "encode_s": d[0],
+           "evaluate_s": d[1], "extract_s": d[2], "write_s": d[3],
+           "queries": stats["queries"], "faces": [len(f) for _, f in meshes]}
+    emit(rec)
+    return rec
+
+
+def phase_dense(out_dir: str, subjects):
+    """Dense serving through K3: one subject at 512^3, its stages, and K1
+    held against the dense field at random grid points."""
+    import torch
+    from surs_tpu_torch.ops import fused_mlp as fm
+    from surs_tpu_torch.ops.point_query import fused_query
+    from surs_tpu_torch.recon.grid import flat_index_to_world
+    from surs_tpu_torch.recon.pipeline import eval_calibration
+    from surs_tpu_torch.serve import SuRSService, normalize_image
+
+    t0 = time.perf_counter()
+    service = SuRSService(full_width_config(use_octree=False))
+    warm = service.warmup((256, 256))
+    setup_s = time.perf_counter() - t0
+    img, mask = subjects[0]
+    stats = {}
+    torch.cuda.synchronize()
+    fm.fused_dual_mlp.launches = 0        # main path starts here
+    fm.fused_dual_mlp_cols.launches = 0
+    t1 = time.perf_counter()
+    p_hr, p_lr = service.reconstruct(img, mask, "dense0", out_dir,
+                                     stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    k3, k1 = fm.fused_dual_mlp_cols.launches, fm.fused_dual_mlp.launches
+    written = [os.path.getsize(p) for p in (p_hr, p_lr)]
+    stages = phase_stages(service, subjects, out_dir, phase="dense_stages")
+    # K1 at random grid points against the dense field of the subject
+    arr, _ = normalize_image(img, mask)
+    cfg = service.cfg
+    _, feats_lr, feat_hr = service.rec.encode(arr)
+    sdf_hr, sdf_lr, mat = service.rec.evaluate(
+        feats_lr, feat_hr, eval_calibration(1), cfg.resolution, cfg.b_min,
+        cfg.b_max, use_octree=False)
+    rng = np.random.default_rng(SEED)
+    flat = torch.from_numpy(rng.integers(0, cfg.resolution ** 3,
+                                         N_MAIN)).cuda()
+    pts = flat_index_to_world(flat, cfg.resolution, 1, mat)
+    fdt = service.rec.feature_dtype
+    with torch.inference_mode():
+        q_hr, q_lr = fused_query(service.weights, feats_lr[-1].to(fdt),
+                                 feat_hr.to(fdt), pts[None],
+                                 torch.from_numpy(eval_calibration(1)).cuda(),
+                                 cfg.loadSize, cfg.z_size)
+    err = max((q_hr[0] - sdf_hr.reshape(-1)[flat]).abs().max().item(),
+              (q_lr[0] - sdf_lr.reshape(-1)[flat]).abs().max().item())
+    rec = {"phase": "dense", "resolution": cfg.resolution,
+           "setup_s": setup_s, "warmup_s": warm, "seconds": seconds,
+           "mode": stats["mode"], "queries": stats["queries"],
+           "faces": stats["faces"], "obj_bytes": written,
+           "k3_launches": k3, "k1_launches": k1,
+           "k1_vs_dense_field": err, "k1_vs_dense_tol": SERVE_TOL,
+           "field_lr_range": [sdf_lr.min().item(), sdf_lr.max().item()],
+           "stages": {k: stages[k] for k in ("encode_s", "evaluate_s",
+                                             "extract_s", "write_s")}}
+    emit(rec)
+    del service, sdf_hr, sdf_lr
+    clear_objs(out_dir)
+    torch.cuda.empty_cache()
+    if not (k3 > 0 and k1 == 0 and rec["mode"] == "dense-cols"
+            and stats["faces"][1] > 0 and err <= SERVE_TOL
+            and stages["mode"] == "dense-cols"):
+        raise AssertionError(f"dense failed: {rec}")
+    return rec
+
+
+def phase_runs(out_dir: str, subjects, serve_rec=None):
+    """Runs-mode serving through K4 on the subjects of ``serve``; then a
+    float32 runs service against a float32 mono service at 128^3."""
+    import torch
+    from surs_tpu_torch.ops import fused_mlp as fm
+    from surs_tpu_torch.serve import SuRSService
+
+    t0 = time.perf_counter()
+    service = SuRSService(full_width_config(serve_octree_mode="runs"))
+    warm = service.warmup((256, 256))
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    fm.fused_dual_mlp.launches = 0        # main path starts here
+    fm.fused_dual_mlp_runs.launches = 0
+    per = []
+    for i, (img, mask) in enumerate(subjects):
+        stats = {}
+        t1 = time.perf_counter()
+        p_hr, p_lr = service.reconstruct(img, mask, f"runs{i}", out_dir,
+                                         stats=stats)
+        per.append({"seconds": time.perf_counter() - t1,
+                    "mode": stats["mode"], "queries": stats["queries"],
+                    "faces_hr": stats["faces"][0],
+                    "faces_lr": stats["faces"][1],
+                    "obj_bytes": [os.path.getsize(p_hr),
+                                  os.path.getsize(p_lr)]})
+    torch.cuda.synchronize()
+    k4, k1 = fm.fused_dual_mlp_runs.launches, fm.fused_dual_mlp.launches
+    resolution = service.cfg.resolution
+    stages = phase_stages(service, subjects, out_dir, phase="runs_stages")
+    del service
+    clear_objs(out_dir)
+    torch.cuda.empty_cache()
+    # float32, full width, 128^3: the window path against the point path
+    small = dict(resolution=128, dtype="float32", feature_dtype="float32")
+    img, mask = subjects[0]
+    st_r, st_m = {}, {}
+    f_runs = SuRSService(full_width_config(serve_octree_mode="runs",
+                                           **small)).fields(img, mask, st_r)
+    f_mono = SuRSService(full_width_config(**small)).fields(img, mask, st_m)
+    err = max((a - b).abs().max().item() for a, b in zip(f_runs, f_mono))
+    rec = {"phase": "runs", "resolution": resolution, "setup_s": setup_s,
+           "warmup_s": warm, "requests": per, "k4_launches": k4,
+           "k1_launches": k1,
+           "seconds_per_request": float(np.mean([r["seconds"] for r in per])),
+           "queries_per_request": float(np.mean([r["queries"] for r in per])),
+           "f32_runs_vs_mono_128": err, "f32_tol": RUNS_VS_MONO_TOL,
+           "f32_modes": [st_r["mode"], st_m["mode"]],
+           "f32_queries": [st_r["queries"], st_m["queries"]],
+           "stages": {k: stages[k] for k in ("encode_s", "evaluate_s",
+                                             "extract_s", "write_s")}}
+    if serve_rec is not None:
+        rec["mono_seconds_per_request"] = serve_rec["seconds_per_request"]
+        rec["mono_queries_per_request"] = float(np.mean(
+            [r["queries"] for r in serve_rec["requests"]]))
+    emit(rec)
+    if not (k4 > 0 and k1 == 0 and err <= RUNS_VS_MONO_TOL
+            and all(r["mode"] == "octree-runs" and r["faces_lr"] > 0
+                    for r in per)
+            and rec["f32_modes"] == ["octree-runs", "octree-mono"]
+            and stages["mode"] == "octree-runs"):
+        raise AssertionError(f"runs failed: {rec}")
+    return rec
 
 
 # ------------------------------------------------------------- training --
@@ -624,8 +931,8 @@ def phase_train_profile(cfg, items, trained, steps: int = 3):
         raise AssertionError(f"the profile saw no device time: {rec}")
 
 
-PHASES = ("build", "k1", "k2", "serve", "check", "stages", "train",
-          "train_check")
+PHASES = ("build", "k1", "k2", "k3", "k4", "serve", "check", "stages",
+          "dense", "runs", "train", "train_check")
 # run only when named in --phases
 EXTRA_PHASES = ("train_profile",)
 
@@ -646,7 +953,10 @@ def main() -> int:
     phase_build()
     k1 = phase_k1() if "k1" in phases else None
     k2 = phase_k2() if "k2" in phases else None
-    serve = tr = None
+    k3 = phase_k3() if "k3" in phases else None
+    k4 = phase_k4() if "k4" in phases else None
+    serve = dense = runs = tr = None
+    subjects = [synthetic_subject(i) for i in range(3)]
     with tempfile.TemporaryDirectory() as out_dir:
         if "serve" in phases:
             service, subjects, serve = phase_serve(out_dir)
@@ -655,7 +965,12 @@ def main() -> int:
             if "stages" in phases:
                 phase_stages(service, subjects, out_dir)
             del service
+            clear_objs(out_dir)
             torch.cuda.empty_cache()
+        if "dense" in phases:
+            dense = phase_dense(out_dir, subjects)
+        if "runs" in phases:
+            runs = phase_runs(out_dir, subjects, serve)
         if "train" in phases:
             cfg, items, trained, tr = phase_train(out_dir)
             if "train_check" in phases:
@@ -691,6 +1006,32 @@ def main() -> int:
         "plain_ms": k2_rec["plain_ms"],
         "bound_ms": k2_rec["bound_ms"],
         "bound_by": k2_rec["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_dual_mlp_cols",
+        "route": "cuda",
+        "source": "surs_tpu_torch/csrc/fused_cols_mlp.cu",
+        "replaces": "surs_tpu/ops/fused_mlp.py:576",
+        "launches": dense["k3_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3["checks"]
+                           if r["dtype"] == "bfloat16"),
+        "ms": k3["grid"]["ms"],
+        "plain_ms": k3["grid"]["plain_ms"],
+        "bound_ms": k3["grid"]["bound_ms"],
+        "bound_by": k3["grid"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_dual_mlp_runs",
+        "route": "cuda",
+        "source": "surs_tpu_torch/csrc/fused_cols_mlp.cu",
+        "replaces": "surs_tpu/ops/fused_mlp.py:728",
+        "launches": runs["k4_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k4["checks"]
+                           if r["dtype"] == "bfloat16"),
+        "ms": k4["main"]["ms"],
+        "plain_ms": k4["main"]["plain_ms"],
+        "bound_ms": k4["main"]["bound_ms"],
+        "bound_by": k4["main"]["bound_by"],
         "library_ms": None,
     }]})
     smi = subprocess.run(

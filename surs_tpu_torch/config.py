@@ -187,7 +187,8 @@ _BOOL_FIELDS = {
 # whatever device the field lives on (recon/marching.py); only the
 # precision differs. 'hostloop', 'fused' and 'mono' give identical
 # fields in the JAX package (tests/test_recon.py:245,620), so all three
-# name the port's one octree evaluator.
+# name the port's one point octree evaluator; 'runs' (the window
+# evaluator, recon/evaluator_runs.py) is opt-in, as in the JAX package.
 AUTO = {
     "cuda": {"dtype": "bfloat16", "feature_dtype": "bfloat16",
              "octree_mode": "mono", "serve_octree_mode": "mono",
@@ -199,12 +200,9 @@ AUTO = {
 
 # (knob, value) -> the ROADMAP.md item that ports it
 _UNPORTED = {
-    ("octree_mode", "runs"): "A10 runs-mode octree (kernel K4)",
-    ("serve_octree_mode", "runs"): "A10 runs-mode octree (kernel K4)",
     ("mc_algorithm", "tets"): "A15 marching tetrahedra",
     ("mc_backend", "host"): "A15 marching tetrahedra (host extractor)",
     ("mc_backend", "sharded"): "A13 multi-device",
-    ("use_octree", False): "A8 dense evaluation (kernel K3)",
     ("with_color", True): "A11 color branch",
     ("norm", "batch"): "A16 batch-norm trunks",
     ("remat", True): "A19 training remainder (remat)",
@@ -213,8 +211,8 @@ _UNPORTED = {
 _PORTED = {
     "dtype": ("float32", "bfloat16"),
     "feature_dtype": ("float32", "bfloat16"),
-    "octree_mode": ("hostloop", "fused", "mono"),
-    "serve_octree_mode": ("hostloop", "fused", "mono"),
+    "octree_mode": ("hostloop", "fused", "mono", "runs"),
+    "serve_octree_mode": ("hostloop", "fused", "mono", "runs"),
     "mc_backend": ("device", "auto"),
     "mc_algorithm": ("cubes",),
 }

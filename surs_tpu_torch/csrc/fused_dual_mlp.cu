@@ -33,185 +33,34 @@
 // and the feature gather fused into the prologue.
 //
 // Kernel K2, the training variant (coarse and fine MLP on two point
-// sets), is at the end of the file and reuses this device code.
+// sets), is at the end of the file and reuses this device code. The
+// hidden-layer device code lives in dual_mlp.cuh, shared with K3 and K4
+// (fused_cols_mlp.cu).
 //
 // Built with nvcc into a shared library with a plain C interface
 // (ops/cuda_build.py); the wrappers are ops/fused_mlp.py:fused_dual_mlp
 // and fused_dual_mlp_train.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <stddef.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "dual_mlp.cuh"
 
 namespace {
 
-// Reference widths (ops/fused_mlp.py checks them before a launch).
-constexpr int XK = 336;  // padded input width: 321 / 322 rounded up to 16
-constexpr int D0 = 1024, D1 = 512, D2 = 256, D3 = 128;
-
-// Packed weight buffer of one MLP (elements), built by
-// ops/fused_mlp.py:prepare_fused_weights. Each block is [in, out] row-major.
-constexpr size_t OFF_W0X = 0;                                  // [XK, D0]
-constexpr size_t OFF_W1H = OFF_W0X + (size_t)XK * D0;          // [D0, D1]
-constexpr size_t OFF_W2H = OFF_W1H + (size_t)D0 * D1;          // [D1, D2]
-constexpr size_t OFF_W2X = OFF_W2H + (size_t)D1 * D2;          // [XK, D2]
-constexpr size_t OFF_W3H = OFF_W2X + (size_t)XK * D2;          // [D2, D3]
-constexpr size_t OFF_W3X = OFF_W3H + (size_t)D2 * D3;          // [XK, D3]
-constexpr size_t OFF_W4H = OFF_W3X + (size_t)XK * D3;          // [D3]
-constexpr size_t OFF_W4X = OFF_W4H + D3;                       // [XK]
-constexpr int OFF_B0 = 0, OFF_B1 = D0, OFF_B2 = D0 + D1,
-              OFF_B3 = D0 + D1 + D2, OFF_B4 = D0 + D1 + D2 + D3;
-
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f32(float& d, float v) { d = v; }
-__device__ __forceinline__ void from_f32(bf16& d, float v) {
-  d = __float2bfloat16(v);
-}
-__device__ __forceinline__ float leaky(float v) {
-  return v >= 0.f ? v : 0.01f * v;
-}
-
-// Stage BN input rows into smem as [BN, ldx] in the compute dtype: columns
-// [0, w0) from x0, [w0, w0 + w1) from x1, zeros elsewhere and past n.
-template <typename T, int BN>
-__device__ void stage_input(T* X, int ldx, const float* __restrict__ x0,
-                            int w0, const float* __restrict__ x1, int w1,
-                            int n, int base) {
-  for (int idx = threadIdx.x; idx < BN * ldx; idx += THREADS) {
-    const int p = idx / ldx, c = idx - p * ldx, g = base + p;
-    float v = 0.f;
-    if (g < n) {
-      if (c < w0) v = x0[(size_t)g * w0 + c];
-      else if (c < w0 + w1) v = x1[(size_t)g * w1 + (c - w0)];
-    }
-    from_f32(X[idx], v);
-  }
-}
-
-// Last layer (one output): a warp per group of points, lanes split the
-// h.w_h + x.w_x dot product; sigmoid into pred[BN].
-template <typename T, int BN>
-__device__ void final_layer(const T* P, int ldp, const T* X, int ldx,
-                            const T* __restrict__ wh,
-                            const T* __restrict__ wx, float b, float* pred) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = 0; i < BN / WARPS; ++i) {
-    const int p = warp * (BN / WARPS) + i;
-    float s = 0.f;
-    for (int k = lane; k < D3; k += 32)
-      s += to_f32(P[p * ldp + k]) * to_f32(wh[k]);
-    for (int k = lane; k < XK; k += 32)
-      s += to_f32(X[p * ldx + k]) * to_f32(wx[k]);
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) pred[p] = 1.f / (1.f + expf(-(s + b)));
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------- bf16 ---
-constexpr int BN16 = 64;
-constexpr int LDX16 = XK + 8;  // row pads keep wmma's smem rows off one bank
-constexpr int LDP16 = D0 + 8;
 constexpr size_t SMEM16 = (size_t)BN16 * LDX16 * 2 + (size_t)BN16 * LDP16 * 2 +
                           (size_t)WARPS * 256 * 4 + BN16 * 4;
-
-// One hidden layer: out[BN16, N] = leaky(h[:, :KH].Wh + X[:, :KX].Wx + b).
-// Warp w owns output column tiles [w * TPW, (w + 1) * TPW), taken CT at a
-// time with a 4 x CT block of accumulators (all 64 rows). IN_PLACE layers
-// finish every read of `h` before the barrier and then overwrite it.
-template <int N, int KH, int KX, bool IN_PLACE>
-__device__ void layer_bf16(const bf16* h, const bf16* X,
-                           const bf16* __restrict__ wh,
-                           const bf16* __restrict__ wx,
-                           const float* __restrict__ bias, bf16* out,
-                           float* scratch) {
-  constexpr int TPW = N / 16 / WARPS;
-  constexpr int CT = TPW < 4 ? TPW : 4;
-  constexpr int PASSES = TPW / CT;
-  static_assert(TPW >= 1 && TPW % CT == 0, "bad layer width");
-  static_assert(!IN_PLACE || PASSES == 1, "in-place needs one pass");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int pass = 0; pass < PASSES; ++pass) {
-    const int col0 = (warp * TPW + pass * CT) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][CT];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) wmma::fill_fragment(acc[r][c], 0.f);
-
-#pragma unroll 1
-    for (int k = 0; k < KH; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        wmma::load_matrix_sync(a[r], h + r * 16 * LDP16 + k, LDP16);
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wh + (size_t)k * N + col0 + c * 16, N);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) wmma::mma_sync(acc[r][c], a[r], b, acc[r][c]);
-      }
-    }
-#pragma unroll 1
-    for (int k = 0; k < KX; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        wmma::load_matrix_sync(a[r], X + r * 16 * LDX16 + k, LDX16);
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wx + (size_t)k * N + col0 + c * 16, N);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) wmma::mma_sync(acc[r][c], a[r], b, acc[r][c]);
-      }
-    }
-    if (IN_PLACE) __syncthreads();
-
-    // epilogue through a per-warp 16x16 float tile: bias, leaky, round
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        wmma::store_matrix_sync(scratch, acc[r][c], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int cb = col0 + c * 16;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int idx = lane + 32 * e, row = idx >> 4, col = idx & 15;
-          out[(r * 16 + row) * LDP16 + cb + col] =
-              __float2bfloat16(leaky(scratch[idx] + bias[cb + col]));
-        }
-        __syncwarp();
-      }
-  }
-  __syncthreads();
-}
 
 __device__ void mlp_bf16(bf16* P, const bf16* X, const bf16* __restrict__ w,
                          const float* __restrict__ b, float* scratch,
                          float* pred) {
-  layer_bf16<D0, 0, XK, false>(P, X, nullptr, w + OFF_W0X, b + OFF_B0, P,
-                               scratch);
-  layer_bf16<D1, D0, 0, true>(P, X, w + OFF_W1H, nullptr, b + OFF_B1, P,
-                              scratch);
-  layer_bf16<D2, D1, XK, true>(P, X, w + OFF_W2H, w + OFF_W2X, b + OFF_B2, P,
-                               scratch);
-  layer_bf16<D3, D2, XK, true>(P, X, w + OFF_W3H, w + OFF_W3X, b + OFF_B3, P,
-                               scratch);
-  final_layer<bf16, BN16>(P, LDP16, X, LDX16, w + OFF_W4H, w + OFF_W4X,
-                          b[OFF_B4], pred);
+  layer_bf16<D0, 0, XK, false>(P, X, nullptr, w + OFF_W0X,
+                               BiasEpi{b + OFF_B0}, P, scratch);
+  layer_bf16<D1, D0, 0, true>(P, X, w + OFF_W1H, nullptr, BiasEpi{b + OFF_B1},
+                              P, scratch);
+  layer_bf16<D2, D1, XK, true>(P, X, w + OFF_W2H, w + OFF_W2X,
+                               BiasEpi{b + OFF_B2}, P, scratch);
+  layer_bf16<D3, D2, XK, true>(P, X, w + OFF_W3H, w + OFF_W3X,
+                               BiasEpi{b + OFF_B3}, P, scratch);
+  final_layer<bf16, BN16, XK>(P, LDP16, X, LDX16, w + OFF_W4H, w + OFF_W4X,
+                              ConstExtra{b[OFF_B4]}, pred);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -247,83 +96,21 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ----------------------------------------------------------------- f32 ---
-constexpr int BN32 = 32;
-constexpr int LDX32 = XK + 4;
-constexpr int LDP32 = D0 + 4;
 constexpr size_t SMEM32 = (size_t)BN32 * LDX32 * 4 +
                           (size_t)BN32 * LDP32 * 4 + BN32 * 4;
 
-// One hidden layer in float32 FMA loops: each thread owns an 8 x 8 tile
-// of the [BN32, N] output (N / 2 tiles, taken THREADS at a time).
-template <int N, int KH, int KX, bool IN_PLACE>
-__device__ void layer_f32(const float* h, const float* X,
-                          const float* __restrict__ wh,
-                          const float* __restrict__ wx,
-                          const float* __restrict__ bias, float* out) {
-  constexpr int CG = N / 8;             // column groups
-  constexpr int TILES = (BN32 / 8) * CG;
-  constexpr int PASSES = (TILES + THREADS - 1) / THREADS;
-  static_assert(!IN_PLACE || PASSES == 1, "in-place needs one pass");
-  for (int pass = 0; pass < PASSES; ++pass) {
-    const int tile = pass * THREADS + threadIdx.x;
-    const bool active = tile < TILES;
-    const int rg = tile / CG, cg = tile % CG;
-    float acc[8][8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-    if (active) {
-#pragma unroll 2
-      for (int k = 0; k < KH; ++k) {
-        float a[8], w[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) a[r] = h[(rg * 8 + r) * LDP32 + k];
-        const float4 w0 = *reinterpret_cast<const float4*>(wh + (size_t)k * N + cg * 8);
-        const float4 w1 = *reinterpret_cast<const float4*>(wh + (size_t)k * N + cg * 8 + 4);
-        w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w;
-        w[4] = w1.x; w[5] = w1.y; w[6] = w1.z; w[7] = w1.w;
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
-      }
-#pragma unroll 2
-      for (int k = 0; k < KX; ++k) {
-        float a[8], w[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) a[r] = X[(rg * 8 + r) * LDX32 + k];
-        const float4 w0 = *reinterpret_cast<const float4*>(wx + (size_t)k * N + cg * 8);
-        const float4 w1 = *reinterpret_cast<const float4*>(wx + (size_t)k * N + cg * 8 + 4);
-        w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w;
-        w[4] = w1.x; w[5] = w1.y; w[6] = w1.z; w[7] = w1.w;
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
-      }
-    }
-    if (IN_PLACE) __syncthreads();
-    if (active) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          out[(rg * 8 + r) * LDP32 + cg * 8 + c] =
-              leaky(acc[r][c] + bias[cg * 8 + c]);
-    }
-  }
-  __syncthreads();
-}
-
 __device__ void mlp_f32(float* P, const float* X, const float* __restrict__ w,
                         const float* __restrict__ b, float* pred) {
-  layer_f32<D0, 0, XK, false>(P, X, nullptr, w + OFF_W0X, b + OFF_B0, P);
-  layer_f32<D1, D0, 0, true>(P, X, w + OFF_W1H, nullptr, b + OFF_B1, P);
-  layer_f32<D2, D1, XK, true>(P, X, w + OFF_W2H, w + OFF_W2X, b + OFF_B2, P);
-  layer_f32<D3, D2, XK, true>(P, X, w + OFF_W3H, w + OFF_W3X, b + OFF_B3, P);
-  final_layer<float, BN32>(P, LDP32, X, LDX32, w + OFF_W4H, w + OFF_W4X,
-                           b[OFF_B4], pred);
+  layer_f32<D0, 0, XK, false>(P, X, nullptr, w + OFF_W0X, BiasEpi{b + OFF_B0},
+                              P);
+  layer_f32<D1, D0, 0, true>(P, X, w + OFF_W1H, nullptr, BiasEpi{b + OFF_B1},
+                             P);
+  layer_f32<D2, D1, XK, true>(P, X, w + OFF_W2H, w + OFF_W2X,
+                              BiasEpi{b + OFF_B2}, P);
+  layer_f32<D3, D2, XK, true>(P, X, w + OFF_W3H, w + OFF_W3X,
+                              BiasEpi{b + OFF_B3}, P);
+  final_layer<float, BN32, XK>(P, LDP32, X, LDX32, w + OFF_W4H, w + OFF_W4X,
+                               ConstExtra{b[OFF_B4]}, pred);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library
 with a plain C interface, at first use, into ``csrc/_build/`` (listed in
 .gitignore), and is loaded with ctypes. Only the repository's sources
-are compiled. The library file name carries a hash of the source, so an
-edited kernel is rebuilt; concurrent builds each write a private temp
-file and rename it into place.
+are compiled. The library file name carries a hash of the source and of
+the shared ``csrc/*.cuh`` headers, so an edited kernel is rebuilt;
+concurrent builds each write a private temp file and rename it into
+place.
 """
 
 from __future__ import annotations
@@ -40,7 +41,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers are hashed too: an edit there rebuilds every kernel
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return src, BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,5 +1,5 @@
-"""Kernels K1 and K2: the fused dual occupancy MLP for serving and for
-training, each beside its plain version.
+"""Kernels K1-K4: the fused dual occupancy MLP for serving, training,
+dense columns and octree windows, each beside its plain version.
 
 K1 is the counterpart of ``fused_dual_mlp`` in
 ``surs_tpu/ops/fused_mlp.py`` (Pallas body ``_kernel``). Per point: the
@@ -12,6 +12,15 @@ K2 is the counterpart of ``fused_dual_mlp_train`` (Pallas body
 [xb, mask_a * pred_lr]; both outputs unmasked. Its autograd op
 (``make_fused_dual_mlp_train_ad``) launches K2 forward and, like the JAX
 custom_vjp, differentiates a recompute of the plain version backward.
+
+K3 (``fused_dual_mlp_cols``, Pallas body ``_kernel_cols``) and K4
+(``fused_dual_mlp_runs``, body ``_kernel_runs``) run the column-shared
+chain of the TPU's ``_cols_chain``: every point of a grid column shares
+its sampled features, so each input-reading layer takes a per-column
+term once and a rank-1 depth term per sample; K3 expands one column over
+Z depths, K4 one 8-deep window per row of ``x`` at its own depth offset
+``kf``. They read K1's packing (``prepare_cols_weights``); their CUDA
+source is ``csrc/fused_cols_mlp.cu``.
 
 ``prepare_fused_weights`` packs each MLP's weights into one flat buffer
 in the compute dtype, each layer split into the row block that
@@ -220,7 +229,7 @@ def fused_dual_mlp(x, fw: FusedWeights) -> Tuple[torch.Tensor, torch.Tensor]:
     x1 = parts[1] if len(parts) == 2 else None
     fn = ("surs_fused_dual_mlp_bf16" if fw.w_lr.dtype == torch.bfloat16
           else "surs_fused_dual_mlp_f32")
-    return _launch(fused_dual_mlp, fn, fw, N, (
+    return _launch(fused_dual_mlp, "fused_dual_mlp", fn, fw, (N,), (
         parts[0].data_ptr(), widths[0],
         x1.data_ptr() if x1 is not None else None,
         widths[1] if x1 is not None else 0, N))
@@ -277,9 +286,9 @@ def fused_dual_mlp_train(xa: torch.Tensor, xb: torch.Tensor,
     if fw.w_lr.dtype != torch.float32:
         raise ValueError("K2 is built for float32 weights, got "
                          f"{fw.w_lr.dtype}")
-    return _launch(fused_dual_mlp_train, "surs_fused_dual_mlp_train_f32",
-                   fw, N, (xa.data_ptr(), xb.data_ptr(), mask_a.data_ptr(),
-                           C, N))
+    return _launch(fused_dual_mlp_train, "fused_dual_mlp",
+                   "surs_fused_dual_mlp_train_f32", fw, (N,),
+                   (xa.data_ptr(), xb.data_ptr(), mask_a.data_ptr(), C, N))
 
 
 fused_dual_mlp_train.launches = 0
@@ -328,16 +337,207 @@ def make_fused_dual_mlp_train_ad():
     return op
 
 
-def _launch(wrapper, fn_name: str, fw: FusedWeights, n: int, inputs):
-    """Launch ``fn_name`` of the kernel library on the current stream of
-    the weights' device with ``inputs`` + weights + two [n] float32
-    outputs; count the launch on ``wrapper``. Raises if it fails."""
+# ----------------------------------------------------------- K3 and K4 ---
+class ColsWeights(NamedTuple):
+    """Weights of the column kernels: K1's packing, whose x block already
+    holds every row they read (features, then the depth row, then the
+    coarse-prediction row), and the (C_lr, C_hr) feature split."""
+    fw: FusedWeights
+    split: Tuple[int, int]
+
+
+def prepare_cols_weights(mlp_lr, mlp_hr, hg_dim: int = 256,
+                         dtype=torch.float32) -> ColsWeights:
+    """K3/K4 weights (``surs_tpu/ops/fused_mlp.py:prepare_cols_weights``):
+    lr features (``hg_dim``) | hr features | depth. No second buffer: the
+    TPU's ``base_split`` only gave each segment its own 128-lane block."""
+    fw = prepare_fused_weights(mlp_lr, mlp_hr, dtype)
+    c_hr = fw.spec_lr.dims[0] - 1 - hg_dim
+    if hg_dim <= 0 or c_hr <= 0:
+        raise ValueError(f"hg_dim {hg_dim} leaves no hr features in an "
+                         f"input of {fw.spec_lr.dims[0]}")
+    return ColsWeights(fw, (hg_dim, c_hr))
+
+
+# points per chunk of the plain versions: bounds their [rows, 1024]
+# activations (a dense 512^3 grid would otherwise need 550 GB)
+_REF_CHUNK_ROWS = 32768
+
+
+def _cols_chain_ref(x_lr, x_hr, kf, zrow, rep: int, w, b, spec: MLPSpec,
+                    xk: int, pred=None) -> torch.Tensor:
+    """The TPU's ``_cols_chain`` (``surs_tpu/ops/fused_mlp.py:481-524``)
+    over G columns, each expanded to ``rep`` rows: x_lr [G, C_lr], x_hr
+    [G, C_hr] float32 holding compute-dtype values, kf [G] or None, zrow
+    [G * rep] the depth feature of each row, pred [G * rep] or None ->
+    logit [G * rep]."""
+    cdt = w.dtype
+    c_lr, F = x_lr.shape[1], x_lr.shape[1] + x_hr.shape[1]
+    layout = _layout(spec, xk)
+    h = None
+    for i, (hb, xb, bo, n) in enumerate(layout):
+        acc = None
+        if xb is not None:
+            wx = w[xb[0]:xb[0] + xk * n].view(xk, n).float()
+            col = x_lr @ wx[:c_lr] + x_hr @ wx[c_lr:F]
+            if kf is not None:
+                col = col + kf[:, None] * wx[F]
+            acc = (col.repeat_interleave(rep, 0)
+                   + (zrow[:, None] * wx[F]).to(cdt).float())
+        if hb is not None:
+            wh = w[hb[0]:hb[0] + hb[1] * n].view(hb[1], n).float()
+            d = h.to(cdt).float() @ wh
+            acc = d if acc is None else acc + d
+        if xb is not None and pred is not None:
+            acc = acc + pred[:, None] * wx[F + 1]
+        h = acc + b[bo:bo + n]
+        if i < len(layout) - 1:
+            h = torch.where(h >= 0, h, 0.01 * h)
+    return h[:, 0]
+
+
+def _dual_cols_ref(x_lr, x_hr, kf, zf, fw: FusedWeights):
+    """Both MLPs of the column chain: G columns x len(zf) depths, row
+    (g, t) at depth feature (kf[g] +) zf[t] -> ([G, Z], [G, Z])."""
+    cdt = fw.w_lr.dtype
+    G, Z = x_lr.shape[0], zf.shape[0]
+    xl = x_lr.float().to(cdt).float()
+    xh = x_hr.float().to(cdt).float()
+    kf = None if kf is None else kf.float()
+    zrow = zf.float().repeat(G)
+    pred_lr = torch.sigmoid(_cols_chain_ref(xl, xh, kf, zrow, Z, fw.w_lr,
+                                            fw.b_lr, fw.spec_lr, fw.xk))
+    pred_hr = torch.sigmoid(_cols_chain_ref(xl, xh, kf, zrow, Z, fw.w_hr,
+                                            fw.b_hr, fw.spec_hr, fw.xk,
+                                            pred=pred_lr))
+    return pred_hr.view(G, Z), pred_lr.view(G, Z)
+
+
+def _chunked(x_lr, x_hr, kf, zf, fw):
+    step = max(1, _REF_CHUNK_ROWS // max(zf.shape[0], 1))
+    outs = [_dual_cols_ref(x_lr[s:s + step], x_hr[s:s + step],
+                           None if kf is None else kf[s:s + step], zf, fw)
+            for s in range(0, x_lr.shape[0], step)]
+    if not outs:
+        empty = x_lr.new_zeros((0, zf.shape[0]), dtype=torch.float32)
+        return empty, empty.clone()
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def fused_dual_mlp_cols_ref(x_lr: torch.Tensor, x_hr: torch.Tensor,
+                            zf: torch.Tensor, fw: FusedWeights
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3, rounding where the Pallas body
+    ``_kernel_cols`` rounds (features cast before their product, the
+    depth term ``zf * w_z`` rounded after it, pred_lr not rounded):
+    x_lr [Ncol, C_lr], x_hr [Ncol, C_hr], zf [Z] ->
+    (pred_hr [Ncol, Z], pred_lr [Ncol, Z]) float32, in column chunks."""
+    return _chunked(x_lr, x_hr, None, zf, fw)
+
+
+def fused_dual_mlp_runs_ref(x_lr: torch.Tensor, x_hr: torch.Tensor,
+                            kf: torch.Tensor, zt: torch.Tensor,
+                            fw: FusedWeights
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4: window w, depth t has the depth
+    feature kf[w] + zt[t], with ``kf * w_z`` in float32 (unrounded) and
+    ``zt * w_z`` rounded as K3's depth term. x_lr [NR, C_lr], x_hr
+    [NR, C_hr], kf [NR], zt [zb] -> ([NR, zb], [NR, zb]) float32."""
+    return _chunked(x_lr, x_hr, kf, zt, fw)
+
+
+def _check_cols_inputs(x_lr, x_hr, fw: FusedWeights, depth_shapes) -> bool:
+    """Check the column kernels' inputs (``depth_shapes``: (tensor,
+    expected shape) pairs); True for CPU tensors, which take the plain
+    version."""
+    n = x_lr.shape[0]
+    if x_lr.dim() != 2 or x_hr.dim() != 2 or x_hr.shape[0] != n \
+            or x_lr.shape[1] + x_hr.shape[1] != fw.spec_lr.dims[0] - 1:
+        raise ValueError(
+            f"x_lr {tuple(x_lr.shape)} and x_hr {tuple(x_hr.shape)} do not "
+            f"make [n, {fw.spec_lr.dims[0] - 1}] features")
+    for t, shape in depth_shapes:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected a depth input of shape {shape}, "
+                             f"got {tuple(t.shape)}")
+    dev = x_lr.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the column kernels run on CUDA or CPU tensors, "
+                         f"not {dev}")
+    return dev.type == "cpu"
+
+
+def _cols_fn(kind: str, fw: FusedWeights) -> str:
+    return (f"surs_fused_dual_mlp_{kind}_bf16"
+            if fw.w_lr.dtype == torch.bfloat16
+            else f"surs_fused_dual_mlp_{kind}_f32")
+
+
+def fused_dual_mlp_cols(x_lr: torch.Tensor, x_hr: torch.Tensor,
+                        zf: torch.Tensor, fw: FusedWeights
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Column-shared dual MLP (``surs_tpu/ops/fused_mlp.py:576``): x_lr
+    [Ncol, C_lr], x_hr [Ncol, C_hr] per-column features, zf [Z] the
+    shared depth features -> (pred_hr [Ncol, Z], pred_lr [Ncol, Z])
+    float32, the [column, depth] volume layout. Any Z. CUDA tensors
+    launch kernel K3 (counted in ``fused_dual_mlp_cols.launches``); CPU
+    tensors take :func:`fused_dual_mlp_cols_ref`; anything else
+    raises."""
+    if _check_cols_inputs(x_lr, x_hr, fw, [(zf, (zf.shape[0],))]):
+        return fused_dual_mlp_cols_ref(x_lr, x_hr, zf, fw)
+    _check_kernel_inputs([x_lr, x_hr, zf], fw)
+    ncol, z = x_lr.shape[0], zf.shape[0]
+    return _launch(fused_dual_mlp_cols, "fused_cols_mlp", _cols_fn("cols", fw),
+                   fw, (ncol, z), (x_lr.data_ptr(), x_hr.data_ptr(),
+                                   x_lr.shape[1], zf.data_ptr(), ncol, z))
+
+
+fused_dual_mlp_cols.launches = 0
+
+# depths per window the CUDA kernel K4 is built for
+RUNS_WINDOW = 8
+
+
+def fused_dual_mlp_runs(x_lr: torch.Tensor, x_hr: torch.Tensor,
+                        kf: torch.Tensor, zt: torch.Tensor, fw: FusedWeights
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Window dual MLP (``surs_tpu/ops/fused_mlp.py:728``): x_lr
+    [NR, C_lr], x_hr [NR, C_hr] per-window column features, kf [NR]
+    float32 per-window depth offsets, zt [zb] the shared in-window
+    depths -> ([NR, zb], [NR, zb]) float32; row (w, t) is scored at
+    depth feature kf[w] + zt[t]. CUDA tensors launch kernel K4 (zb = 8;
+    counted in ``fused_dual_mlp_runs.launches``); CPU tensors take
+    :func:`fused_dual_mlp_runs_ref`; anything else raises."""
+    nr = x_lr.shape[0]
+    if _check_cols_inputs(x_lr, x_hr, fw, [(kf, (nr,)),
+                                           (zt, (zt.shape[0],))]):
+        return fused_dual_mlp_runs_ref(x_lr, x_hr, kf, zt, fw)
+    if zt.shape[0] != RUNS_WINDOW:
+        raise ValueError(f"K4 is built for {RUNS_WINDOW}-deep windows, got "
+                         f"zt of {zt.shape[0]}")
+    _check_kernel_inputs([x_lr, x_hr, kf, zt], fw)
+    return _launch(fused_dual_mlp_runs, "fused_cols_mlp", _cols_fn("runs", fw),
+                   fw, (nr, RUNS_WINDOW),
+                   (x_lr.data_ptr(), x_hr.data_ptr(), x_lr.shape[1],
+                    kf.data_ptr(), zt.data_ptr(), nr))
+
+
+fused_dual_mlp_runs.launches = 0
+
+
+# ---------------------------------------------------------------- launch --
+def _launch(wrapper, lib_name: str, fn_name: str, fw: FusedWeights, shape,
+            inputs):
+    """Launch ``fn_name`` of kernel library ``lib_name`` on the current
+    stream of the weights' device with ``inputs`` + weights + two float32
+    outputs of ``shape``; count the launch on ``wrapper``. Raises if it
+    fails."""
     dev = fw.w_lr.device
-    out_hr = torch.empty(n, dtype=torch.float32, device=dev)
-    out_lr = torch.empty(n, dtype=torch.float32, device=dev)
-    if n == 0:
+    out_hr = torch.empty(shape, dtype=torch.float32, device=dev)
+    out_lr = torch.empty(shape, dtype=torch.float32, device=dev)
+    if out_hr.numel() == 0:
         return out_hr, out_lr
-    lib = _kernel_lib()
+    lib = _kernel_lib(lib_name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, fn_name)(
@@ -351,17 +551,32 @@ def _launch(wrapper, fn_name: str, fw: FusedWeights, n: int, inputs):
     return out_hr, out_lr
 
 
-def _kernel_lib() -> ctypes.CDLL:
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each library's entry points: the arguments before the weights, the
+# outputs and the stream (7 pointers, common to all)
+_SIGNATURES = {
+    "fused_dual_mlp": {
+        "surs_fused_dual_mlp_bf16": [_P, _I, _P, _I, _I],
+        "surs_fused_dual_mlp_f32": [_P, _I, _P, _I, _I],
+        "surs_fused_dual_mlp_train_f32": [_P, _P, _P, _I, _I],
+    },
+    "fused_cols_mlp": {
+        "surs_fused_dual_mlp_cols_bf16": [_P, _P, _I, _P, _I, _I],
+        "surs_fused_dual_mlp_cols_f32": [_P, _P, _I, _P, _I, _I],
+        "surs_fused_dual_mlp_runs_bf16": [_P, _P, _I, _P, _P, _I],
+        "surs_fused_dual_mlp_runs_f32": [_P, _P, _I, _P, _P, _I],
+    },
+}
+
+
+def _kernel_lib(name: str) -> ctypes.CDLL:
     from .cuda_build import load
-    lib = load("fused_dual_mlp")
+    lib = load(name)
     if not getattr(lib, "_surs_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.surs_fused_dual_mlp_bf16, lib.surs_fused_dual_mlp_f32):
-            fn.argtypes = [p, i, p, i, i, p, p, p, p, p, p, p]
+        for fn_name, head in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = head + [_P] * 7
             fn.restype = ctypes.c_int
-        lib.surs_fused_dual_mlp_train_f32.argtypes = [p, p, p, i, i, p, p, p,
-                                                      p, p, p, p]
-        lib.surs_fused_dual_mlp_train_f32.restype = ctypes.c_int
         lib.surs_cuda_error_string.argtypes = [ctypes.c_int]
         lib.surs_cuda_error_string.restype = ctypes.c_char_p
         lib._surs_bound = True

@@ -1,6 +1,7 @@
-"""Coarse-to-fine occupancy evaluation: the mono octree semantics of
+"""Occupancy evaluation over the grid: the mono octree semantics of
 ``eval_grid_octree_mono`` (``surs_tpu/recon/evaluator.py:606``) in plain
-torch, on whatever device the evaluation function uses.
+torch, on whatever device the evaluation function uses, and the dense
+evaluators (generic per point through K1, and column-shared through K3).
 
 Each level lives on its own L^3 lattice (L = R / stride):
 
@@ -28,8 +29,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.geometry import orthogonal
+from ..ops.fused_mlp import fused_dual_mlp_cols
+from ..ops.geometry import in_image_mask, normalize_depth, orthogonal
 from ..ops.grid_sample import grid_sample_points
+from .grid import flat_index_to_world
 
 # eval_fn: [3, C] float32 world points -> (hr [C], lr [C])
 EvalFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -182,6 +185,48 @@ def silhouette_masks(mask, calib_np: np.ndarray, R: int, mat: np.ndarray,
 
 
 # ------------------------------------------------------------------------
+# eval_level(reso, dirty [L, L, L] bool, val_hr, val_lr) scores the dirty
+# points of one level into the [L, L, L] fields in place and returns the
+# number of points it scored
+LevelFn = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], int]
+
+
+def octree_fields(eval_level: LevelFn, resolution: int, mat: np.ndarray,
+                  threshold: float, init_resolution: int, device,
+                  silhouette=None, silhouette_calib=None,
+                  silhouette_dilate: int = 3
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The coarse-to-fine level loop shared by the point (mono) and window
+    (runs) evaluators: per level, the still-dirty lattice goes to
+    ``eval_level``, then prunable cells are filled and the state expands
+    to the next level. Returns (hr, lr, points scored)."""
+    R = resolution
+    schedule = level_schedule(R, init_resolution)
+    lats = centers = None
+    if silhouette is not None:
+        lats, centers = silhouette_masks(
+            silhouette, np.asarray(silhouette_calib), R, mat, schedule,
+            silhouette_dilate, device)
+    L = R // schedule[0]
+    val_hr = torch.zeros((L,) * 3, device=device)
+    val_lr = torch.zeros((L,) * 3, device=device)
+    evald = torch.zeros((L,) * 3, dtype=torch.bool, device=device)
+    rfh = torch.zeros_like(evald)
+    rfl = torch.zeros_like(evald)
+    queries = 0
+    for reso in schedule:
+        dirty = ~evald & ~rfh & ~rfl
+        if lats is not None:
+            dirty = dirty & lats[reso]
+        queries += eval_level(reso, dirty, val_hr, val_lr)
+        if reso <= 1:
+            break
+        val_hr, val_lr, evald, rfh, rfl = _prune_upsample(
+            reso, threshold, val_hr, val_lr, evald, rfh, rfl, dirty,
+            centers[reso] if centers is not None else None)
+    return val_hr, val_lr, queries
+
+
 def eval_grid_octree(eval_fn: EvalFn, resolution: int, mat: np.ndarray,
                      threshold: float, init_resolution: int = 64,
                      num_samples: int = 50000, device=None,
@@ -195,25 +240,10 @@ def eval_grid_octree(eval_fn: EvalFn, resolution: int, mat: np.ndarray,
     R = resolution
     mat = np.asarray(mat)
     device = torch.device("cpu" if device is None else device)
-    schedule = level_schedule(R, init_resolution)
-    lats = centers = None
-    if silhouette is not None:
-        lats, centers = silhouette_masks(
-            silhouette, np.asarray(silhouette_calib), R, mat, schedule,
-            silhouette_dilate, device)
     offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=device)
-    L = R // schedule[0]
-    val_hr = torch.zeros((L,) * 3, device=device)
-    val_lr = torch.zeros((L,) * 3, device=device)
-    evald = torch.zeros((L,) * 3, dtype=torch.bool, device=device)
-    rfh = torch.zeros_like(evald)
-    rfl = torch.zeros_like(evald)
-    queries = 0
-    for reso in schedule:
+
+    def eval_level(reso, dirty, val_hr, val_lr):
         L = R // reso
-        dirty = ~evald & ~rfh & ~rfl
-        if lats is not None:
-            dirty = dirty & lats[reso]
         idx = torch.nonzero(dirty.reshape(-1)).squeeze(1)
         scale = torch.tensor(np.diag(mat[:3, :3]) * reso,
                              dtype=torch.float32, device=device)
@@ -226,12 +256,88 @@ def eval_grid_octree(eval_fn: EvalFn, resolution: int, mat: np.ndarray,
             hr, lr = eval_fn(pts)
             flat_hr[ids] = hr
             flat_lr[ids] = lr
-        queries += idx.numel()
-        if reso <= 1:
-            break
-        val_hr, val_lr, evald, rfh, rfl = _prune_upsample(
-            reso, threshold, val_hr, val_lr, evald, rfh, rfl, dirty,
-            centers[reso] if centers is not None else None)
+        return idx.numel()
+
+    val_hr, val_lr, queries = octree_fields(
+        eval_level, R, mat, threshold, init_resolution, device, silhouette,
+        silhouette_calib, silhouette_dilate)
     if stats is not None:
         stats["queries"] = stats.get("queries", 0) + queries
     return val_hr, val_lr
+
+
+# ------------------------------------------------------------------------
+def eval_grid_dense(eval_fn: EvalFn, resolution: int, mat: np.ndarray,
+                    num_samples: int = 50000, device=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every grid point through ``eval_fn`` in chunks of ``num_samples``
+    (``surs_tpu/recon/evaluator.py:1110``); the tail chunk is padded
+    with the last index, as the JAX package does."""
+    R = resolution
+    R3 = R ** 3
+    mat = np.asarray(mat)
+    device = torch.device("cpu" if device is None else device)
+    chunk = min(num_samples, R3)
+    hr_out = torch.empty(R3, device=device)
+    lr_out = torch.empty(R3, device=device)
+    for start in range(0, R3, chunk):
+        idx = torch.arange(start, start + chunk, device=device)
+        pts = flat_index_to_world(idx.clamp_(max=R3 - 1), R, 1, mat)
+        hr, lr = eval_fn(pts)
+        n = min(chunk, R3 - start)
+        hr_out[start:start + n] = hr[:n]
+        lr_out[start:start + n] = lr[:n]
+    return hr_out.view(R, R, R), lr_out.view(R, R, R)
+
+
+# Column-shared dense evaluation (surs_tpu/recon/evaluator.py:1146-1230).
+# Under an axis-aligned projection every z sample of a grid column (i, j)
+# projects to the same (u, v), so its features are gathered once per
+# column and kernel K3 scores the column's R depths.
+def dense_cols_separable(calib, mat, tol: float = 1e-6) -> bool:
+    """True when (u, v) is independent of the grid k axis and depth is
+    independent of (i, j): the precondition for column sharing."""
+    calib = np.asarray(calib, np.float64).reshape(-1, 4, 4)[0]
+    mat = np.asarray(mat, np.float64)
+    A = calib[:3, :3] @ mat[:3, :3]
+    return bool(abs(A[0, 2]) < tol and abs(A[1, 2]) < tol
+                and abs(A[2, 0]) < tol and abs(A[2, 1]) < tol)
+
+
+def check_cols_features(cols_weights, feat_lr, feat_hr) -> None:
+    if (feat_lr.shape[-1], feat_hr.shape[-1]) != tuple(cols_weights.split):
+        raise ValueError(
+            f"feature maps of {feat_lr.shape[-1]} / {feat_hr.shape[-1]} "
+            f"channels do not match the column weights' split "
+            f"{tuple(cols_weights.split)}")
+
+
+def eval_grid_dense_cols(cols_weights, feat_lr, feat_hr, calib,
+                         resolution: int, mat: np.ndarray, load_size: int,
+                         z_size: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense evaluation of every grid point through kernel K3:
+    ``cols_weights`` (ops.fused_mlp.ColsWeights), feature maps
+    [1, H, W, C] in any dtype, a calibration for which
+    :func:`dense_cols_separable` holds. Returns (hr, lr) [R, R, R], the
+    flat order ``column * R + k``."""
+    check_cols_features(cols_weights, feat_lr, feat_hr)
+    R = resolution
+    mat = np.asarray(mat)
+    dev = feat_lr.device
+    calib_t = torch.as_tensor(np.asarray(calib, np.float32),
+                              device=dev).reshape(-1, 4, 4)[:1]
+    # the shared depth feature: z depends only on k
+    zpts = flat_index_to_world(torch.arange(R, device=dev), R, 1, mat)
+    zf = normalize_depth(orthogonal(zpts[None], calib_t)[0, 2, :],
+                         load_size, z_size).contiguous()
+    # each column at k = 0 (its uv holds for every k)
+    cid = torch.arange(R * R, device=dev)
+    xyz = orthogonal(flat_index_to_world(cid * R, R, 1, mat)[None], calib_t)
+    mask = in_image_mask(xyz[:, :2, :])[0]
+    uv = xyz[:, :2, :].transpose(1, 2)
+    x_lr = grid_sample_points(feat_lr, uv)[0]
+    x_hr = grid_sample_points(feat_hr, uv)[0]
+    hr, lr = fused_dual_mlp_cols(x_lr, x_hr, zf, cols_weights.fw)
+    hr.mul_(mask[:, None])
+    lr.mul_(mask[:, None])
+    return hr.view(R, R, R), lr.view(R, R, R)

@@ -6,8 +6,9 @@ model is built once, then (image, mask) pairs become OBJ mesh pairs.
     paths = service.reconstruct(image_rgb, mask, "subject", out_dir)
 
 Images are HxWx3 uint8/float arrays (masked and normalised to [-1, 1]
-inside). Every point query goes through kernel K1
-(ops/fused_mlp.py) on the card.
+inside). Point queries go through kernel K1 (ops/fused_mlp.py) on the
+card; ``use_octree=False`` scores the whole grid through kernel K3, and
+``serve_octree_mode='runs'`` the octree's dirty z-windows through K4.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from .compat.flax_import import load_flax_params
 from .config import SuRSConfig, resolve_config, resolve_device
 from .models.surs_net import surs_net_from_config
-from .ops.fused_mlp import prepare_fused_weights
+from .ops.fused_mlp import prepare_cols_weights, prepare_fused_weights
 from .recon.pipeline import Reconstructor, eval_calibration
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -69,11 +70,20 @@ class SuRSService:
         self.model = surs_net_from_config(cfg, self.device)
         if params is not None:
             load_flax_params(self.model, params)
-        self.weights = prepare_fused_weights(
-            self.model.mlp_lr, self.model.mlp_hr,
-            dtype=_DTYPES[cfg.feature_dtype])
+        kdt = _DTYPES[cfg.feature_dtype]
+        self.weights = prepare_fused_weights(self.model.mlp_lr,
+                                             self.model.mlp_hr, dtype=kdt)
+        cols = None
+        if not cfg.use_octree or cfg.serve_octree_mode == "runs":
+            # dense serving takes kernel K3, runs-mode octree serving
+            # kernel K4, where the calibration allows
+            cols = prepare_cols_weights(self.model.mlp_lr, self.model.mlp_hr,
+                                        cfg.hg_dim, dtype=kdt)
         self.rec = Reconstructor(self.model, self.weights, self.device,
-                                 feature_dtype=_DTYPES[cfg.feature_dtype])
+                                 feature_dtype=kdt,
+                                 octree_mode=cfg.serve_octree_mode,
+                                 cols_weights=cols, load_size=cfg.loadSize,
+                                 z_size=cfg.z_size)
 
     def _data(self, image, mask):
         img, m = normalize_image(image, mask)
@@ -127,15 +137,16 @@ class SuRSService:
             results.append(pending())
         return results
 
-    def fields(self, image, mask):
+    def fields(self, image, mask, stats: Optional[dict] = None):
         """Raw (sdf_hr, sdf_lr) [R, R, R] occupancy tensors of a
         subject."""
         data = self._data(image, mask)
         _, feats_lr, feat_hr = self.rec.encode(data["img_LR"])
         sdf_hr, sdf_lr, _ = self.rec.evaluate(
             feats_lr, feat_hr, eval_calibration(1), self.cfg.resolution,
-            data["b_min"], data["b_max"], num_samples=self.cfg.num_samples,
+            data["b_min"], data["b_max"], use_octree=self.cfg.use_octree,
+            num_samples=self.cfg.num_samples,
             threshold=self.cfg.threshold,
             init_resolution=self.cfg.octree_init_resolution,
-            silhouette=data.get("mask_LR"))
+            silhouette=data.get("mask_LR"), stats=stats)
         return sdf_hr, sdf_lr

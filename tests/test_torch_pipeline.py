@@ -4,7 +4,8 @@ subject: mono octree, classic marching cubes on the device, a +-0.5 box
 and a silhouette mask. Fields at atol 1e-4 (float32 encode and MLP in a
 different summation order); the OBJ pairs are non-empty, have the same
 face counts and allclose vertices. Also the port's own rules: the CUDA
-default, the auto table and the values that raise."""
+default, the auto table, the values that raise and those that now
+resolve (dense and runs-mode evaluation)."""
 
 import dataclasses
 import os
@@ -115,13 +116,22 @@ def test_auto_table():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("octree_mode", "runs"), ("serve_octree_mode", "runs"),
+    ("mc_backend", "sharded"), ("remat", True),
     ("mc_algorithm", "tets"), ("mc_backend", "host"),
-    ("use_octree", False), ("with_color", True)])
+    ("remat_encoder", True), ("with_color", True)])
 def test_unported_values_raise(field, value):
     cfg = dataclasses.replace(SuRSConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         resolve_config(cfg, "cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("octree_mode", "runs"), ("serve_octree_mode", "runs"),
+    ("use_octree", False)])
+def test_dense_and_runs_values_resolve(field, value):
+    cfg = resolve_config(dataclasses.replace(SuRSConfig(), **{field: value}),
+                         "cpu")
+    assert getattr(cfg, field) == value
 
 
 def test_batch_norm_trunk_raises():
