@@ -6,9 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
   1. build:   compile every CUDA kernel (K1 and K2 share one source, K3
-              and K4 another) with nvcc from the repository's sources (one
-              nvcc per source, in parallel), with ptxas' registers and
-              spills per kernel.
+              and K4 a second, K5 a third) with nvcc from the repository's
+              sources (one nvcc per source, in parallel), with ptxas'
+              registers and spills per kernel.
   2. k1:      kernel K1 (fused dual MLP) against its plain PyTorch version
               on the card, at the serving shapes (N = 50,000 and a ragged
               49,999; the (256, 65) input split; full widths), in bf16 and
@@ -26,33 +26,45 @@ Phases, each printing one JSON line; any failure exits non-zero:
   5. k4:      kernel K4 (window dual MLP) the same way at one chunk of the
               runs evaluator (32,768 windows x 8 depths and a ragged
               32,767; depth offsets of the 512 level), timed at 32,768.
-  6. serve:   SuRSService at the reference model's full width (loadSize
+  6. k5:      kernel K5 (row gather, variants vec and loop) against its
+              plain version, bit for bit, at the gather probe's shape
+              (49,152 rows of a [16384, 256] bf16 map), a ragged 49,151
+              and 64-channel rows (the hr map's) in bf16 and float32, and
+              indices outside the map (rows of zeros); each variant,
+              torch.index_select and the plain version timed per launch
+              with L2 cold (and warm), with the bound; then the port's
+              gather probe (surs_tpu_torch.probes.vmem_gather_probe), its
+              lines passed on, K5's launch count zeroed just before and
+              read just after; and, for information, one tap of the
+              serving gather (the full-width service's lr map from
+              encode, 50,000 random rows) through K5 and through PyTorch.
+  7. serve:   SuRSService at the reference model's full width (loadSize
               512, hg_dim 256, 3 lr stacks, the reference MLPs; seeded
               random weights) reconstructs 3 synthetic subjects at 512^3
               with silhouette pruning; K1's launch count is zeroed just
               before and read just after.
-  7. check:   the card's results against references: the served query
+  8. check:   the card's results against references: the served query
               path against the model's float32 reference chain at full
               width, a full-resolution field's range, and a small float32
               service on the card against the same service on the CPU.
-  8. stages:  one subject's time by stage (encode, evaluate, extract,
+  9. stages:  one subject's time by stage (encode, evaluate, extract,
               write).
-  9. dense:   SuRSService(use_octree=False) serves one subject at 512^3
+ 10. dense:   SuRSService(use_octree=False) serves one subject at 512^3
               through K3 (K3's and K1's launch counts zeroed just before
               and read just after: K3 > 0, K1 = 0), with its time by
               stage; K1 scores 50,000 random grid points of the subject
               and they are held against the dense field.
- 10. runs:    SuRSService(serve_octree_mode="runs") serves the 3 subjects
+ 11. runs:    SuRSService(serve_octree_mode="runs") serves the 3 subjects
               of `serve` through K4 (K4 > 0, K1 = 0), with one subject's
               time by stage; then a float32 runs service and a float32
               mono service at 128^3, full width, give the same fields
               within 2e-4.
- 11. train:   train/loop.train at full width (batch 2, 6,000 points,
+ 12. train:   train/loop.train at full width (batch 2, 6,000 points,
               --fused_train, bf16 trunk) on one synthetic batch repeated:
               1 warm-up step and 5 timed ones; K2's launch count is zeroed
               just before and read just after (3 per step, one per lr
               stack); the loss must fall.
- 12. train_check: from one state with a float32 trunk, the fused step's
+ 13. train_check: from one state with a float32 trunk, the fused step's
               gradients against the plain step's, tensor by tensor; and
               the trainer's last checkpoint restored into a fresh state
               on the card equals the state it saved.
@@ -127,6 +139,15 @@ SERVE_TOL = 2e-2
 # the float32 service on the card against the same service on the CPU
 # (cuDNN and cuBLAS in float32, TF32 off)
 F32_SERVICE_TOL = 1e-4
+# K5: a gather copies bits, so it must equal its plain version exactly;
+# its checks add rows of 64 channels (the hr map's 128-byte bf16 rows)
+K5_HR_CHANNELS = 64
+# L2-cold timing: a buffer over twice the card's 50 MB L2, written before
+# each timed launch
+FLUSH_BYTES = 256 << 20
+# clock cycles the card spins before one cold launch (about 1 ms), so the
+# host has enqueued the launch when the card reaches it
+COLD_HOLD_CYCLES = 2_000_000
 
 
 def emit(obj) -> None:
@@ -153,8 +174,10 @@ def time_cuda(fn, reps: int, warm: int = 2) -> float:
 KERNELS = ("fused_dual_mlp_bf16_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_train_f32_kernel",
            "fused_dual_mlp_cols_bf16_kernel", "fused_dual_mlp_cols_f32_kernel",
-           "fused_dual_mlp_runs_bf16_kernel", "fused_dual_mlp_runs_f32_kernel")
-SOURCES = ("fused_dual_mlp", "fused_cols_mlp")
+           "fused_dual_mlp_runs_bf16_kernel", "fused_dual_mlp_runs_f32_kernel",
+           "row_gather_vec_bf16_kernel", "row_gather_vec_f32_kernel",
+           "row_gather_loop_bf16_kernel", "row_gather_loop_f32_kernel")
+SOURCES = ("fused_dual_mlp", "fused_cols_mlp", "row_gather")
 
 
 def ptxas_report(log: str):
@@ -421,6 +444,167 @@ def phase_k4():
             emit(rec)
             recs.append(rec)
     return {"checks": recs, "main": main}
+
+
+def time_cold(fn, reps: int, flush) -> float:
+    """Median milliseconds of one launch of ``fn`` with L2 cold: ``flush``
+    (larger than the L2) is written before each launch, and the events
+    time the launch alone."""
+    import torch
+    from surs_tpu_torch.probes.vmem_gather_probe import hold_card
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        hold_card(COLD_HOLD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def time_warm(fn, reps: int = 50, repeats: int = 3) -> float:
+    """Milliseconds per launch of ``reps`` launches of ``fn`` back to
+    back (L2 warm), best of ``repeats``; the card is held while the host
+    enqueues them, so the events time the card's work."""
+    import torch
+    from surs_tpu_torch.probes.vmem_gather_probe import hold_card
+    fn()
+    best = float("inf")
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        hold_card()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b) / reps)
+    return best
+
+
+def check_gather(feat, idx, want):
+    """Both K5 variants against ``want``, bit for bit."""
+    import torch
+    from surs_tpu_torch.ops import row_gather as rg
+
+    int_view = torch.int16 if feat.element_size() == 2 else torch.int32
+    rec = {"phase": "k5", "dtype": str(feat.dtype).replace("torch.", ""),
+           "rows": feat.shape[0], "channels": feat.shape[1],
+           "n": idx.shape[0]}
+    ok = True
+    for variant in rg.VARIANTS:
+        out = rg.row_gather(feat, idx, variant)
+        torch.cuda.synchronize()
+        same = (out.shape == want.shape and out.dtype == want.dtype
+                and torch.equal(out.view(int_view), want.view(int_view)))
+        rec[f"{variant}_equal"] = bool(same)
+        rec[f"{variant}_max_abs_err"] = (
+            (out.float() - want.float()).abs().max().item() if same
+            else float("inf"))
+        ok = ok and same
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain version: {rec}")
+    return rec
+
+
+def phase_k5(subjects, device: str = "cuda"):
+    """K5 against its plain version, exactly; its cold and warm times
+    beside torch.index_select's and the bound; the gather probe as K5's
+    main path; one tap of the serving gather."""
+    import torch
+    from surs_tpu_torch import roofline
+    from surs_tpu_torch.ops import row_gather as rg
+    from surs_tpu_torch.probes import vmem_gather_probe as probe
+    from surs_tpu_torch.serve import SuRSService, normalize_image
+
+    rows = probe.H * probe.W
+    rng = np.random.default_rng(SEED + 4)
+    checks = []
+    # the probe's shape, a ragged count, the hr map's rows; then rows of
+    # 25 vectors (lanes idle in each block pass) and of 8 KB (one row
+    # over several passes of a block, a sub-tile of 4 rows in loop)
+    for n, c, dtype in ((probe.N, probe.C, torch.bfloat16),
+                        (probe.N - 1, probe.C, torch.bfloat16),
+                        (probe.N, K5_HR_CHANNELS, torch.bfloat16),
+                        (probe.N, K5_HR_CHANNELS, torch.float32),
+                        (4099, 200, torch.bfloat16),
+                        (4099, 2048, torch.float32)):
+        feat = torch.from_numpy(rng.standard_normal((rows, c)).astype(
+            np.float32)).to(dtype).to(device)
+        idx = torch.from_numpy(rng.integers(0, rows, n).astype(
+            np.int32)).to(device)
+        checks.append(check_gather(feat, idx, rg.row_gather_ref(feat, idx)))
+    # indices outside [0, rows) give rows of zeros
+    idx = torch.tensor([0, -1, rows, rows - 1, -2 ** 31, 2 ** 31 - 1],
+                       dtype=torch.int32, device=device)
+    inside = ((idx >= 0) & (idx < rows))[:, None]
+    rows_at = feat[idx.clamp(0, rows - 1).long()]
+    checks.append(check_gather(feat, idx, torch.where(
+        inside, rows_at, torch.zeros_like(rows_at))))
+
+    # per launch at the probe's shape, L2 cold (the bound's case) and warm
+    feat, idx = probe.probe_inputs(device)
+    fns = {"vec": lambda: rg.row_gather(feat, idx, "vec"),
+           "loop": lambda: rg.row_gather(feat, idx, "loop"),
+           "index_select": lambda: torch.index_select(feat, 0, idx),
+           "plain": lambda: rg.row_gather_ref(feat, idx)}
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    flops, nbytes = roofline.k5_work(rows, probe.N, probe.C)
+    b_ms, b_by = roofline.bound(flops, nbytes, "bfloat16")
+    timing = {"phase": "k5_time", "rows": rows, "channels": probe.C,
+              "n": probe.N, "dtype": "bfloat16",
+              "cold_ms": {k: time_cold(f, 20, flush) for k, f in fns.items()},
+              "warm_ms": {k: time_warm(f) for k, f in fns.items()},
+              "bound_ms": b_ms, "bound_by": b_by, "mbytes": nbytes / 1e6}
+    emit(timing)
+    del flush
+
+    # the probe: K5's main path
+    torch.cuda.synchronize()
+    rg.row_gather.launches = 0           # main path starts here
+    recs = probe.main(device)
+    torch.cuda.synchronize()
+    launches = rg.row_gather.launches    # main path ends here
+    emit({"phase": "k5_probe", "k5_launches": launches,
+          "correct": [r["correct"] for r in recs]})
+    if launches <= 0 or not all(r["correct"] for r in recs):
+        raise AssertionError(f"the gather probe failed: {recs}")
+
+    # one tap of the serving gather: the lr map as the served query
+    # samples it (grid_sample_points: flat[bidx, idx])
+    service = SuRSService(full_width_config(), device=device)
+    arr, _ = normalize_image(*subjects[0])
+    _, feats_lr, _ = service.rec.encode(arr)
+    lr = feats_lr[-1].to(service.rec.feature_dtype)
+    B, Hm, Wm, Cm = lr.shape
+    flat = lr.reshape(B * Hm * Wm, Cm).contiguous()
+    flat3 = flat.view(B, Hm * Wm, Cm)
+    tidx = torch.from_numpy(rng.integers(0, Hm * Wm, N_MAIN).astype(
+        np.int32)).to(device)
+    idx64, bidx = tidx.long()[None], torch.arange(B, device=device)[:, None]
+    got, want = rg.row_gather(flat, tidx, "vec"), flat3[bidx, idx64][0]
+    tap = {"phase": "k5_serve_tap", "map_shape": list(lr.shape),
+           "dtype": str(flat.dtype).replace("torch.", ""), "n": N_MAIN,
+           "equal": bool(torch.equal(got, want)),
+           "warm_ms": {
+               "vec": time_warm(lambda: rg.row_gather(flat, tidx, "vec")),
+               "loop": time_warm(lambda: rg.row_gather(flat, tidx, "loop")),
+               "index_select": time_warm(
+                   lambda: torch.index_select(flat, 0, tidx)),
+               "serving_index": time_warm(lambda: flat3[bidx, idx64])}}
+    emit(tap)
+    del service, feats_lr, lr, flat, flat3
+    torch.cuda.empty_cache()
+    if not tap["equal"]:
+        raise AssertionError(f"K5 disagrees at the serving tap: {tap}")
+    return {"checks": checks, "timing": timing, "launches": launches}
 
 
 def synthetic_subject(i: int, S: int = 256):
@@ -931,8 +1115,8 @@ def phase_train_profile(cfg, items, trained, steps: int = 3):
         raise AssertionError(f"the profile saw no device time: {rec}")
 
 
-PHASES = ("build", "k1", "k2", "k3", "k4", "serve", "check", "stages",
-          "dense", "runs", "train", "train_check")
+PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "serve", "check",
+          "stages", "dense", "runs", "train", "train_check")
 # run only when named in --phases
 EXTRA_PHASES = ("train_profile",)
 
@@ -955,8 +1139,9 @@ def main() -> int:
     k2 = phase_k2() if "k2" in phases else None
     k3 = phase_k3() if "k3" in phases else None
     k4 = phase_k4() if "k4" in phases else None
-    serve = dense = runs = tr = None
     subjects = [synthetic_subject(i) for i in range(3)]
+    k5 = phase_k5(subjects) if "k5" in phases else None
+    serve = dense = runs = tr = None
     with tempfile.TemporaryDirectory() as out_dir:
         if "serve" in phases:
             service, subjects, serve = phase_serve(out_dir)
@@ -1033,6 +1218,19 @@ def main() -> int:
         "bound_ms": k4["main"]["bound_ms"],
         "bound_by": k4["main"]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "surs_tpu_torch/csrc/row_gather.cu",
+        "replaces": "benchmarks/vmem_gather_probe.py:79",
+        "launches": k5["launches"],
+        "max_abs_err": max(r[f"{v}_max_abs_err"] for r in k5["checks"]
+                           for v in ("vec", "loop")),
+        "ms": k5["timing"]["cold_ms"]["vec"],
+        "plain_ms": k5["timing"]["cold_ms"]["plain"],
+        "bound_ms": k5["timing"]["bound_ms"],
+        "bound_by": k5["timing"]["bound_by"],
+        "library_ms": k5["timing"]["cold_ms"]["index_select"],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

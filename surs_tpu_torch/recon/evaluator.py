@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config import resolve_device
 from ..ops.fused_mlp import fused_dual_mlp_cols
 from ..ops.geometry import in_image_mask, normalize_depth, orthogonal
 from ..ops.grid_sample import grid_sample_points
@@ -236,10 +237,11 @@ def eval_grid_octree(eval_fn: EvalFn, resolution: int, mat: np.ndarray,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Evaluate the (hr, lr) occupancy fields over the R^3 grid with the
     index->world affine ``mat``; returns two [R, R, R] float32 tensors
-    on ``device``. ``stats["queries"]`` counts the points evaluated."""
+    on ``device`` (CUDA unless named; raises without a GPU).
+    ``stats["queries"]`` counts the points evaluated."""
     R = resolution
     mat = np.asarray(mat)
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=device)
 
     def eval_level(reso, dirty, val_hr, val_lr):
@@ -271,12 +273,13 @@ def eval_grid_dense(eval_fn: EvalFn, resolution: int, mat: np.ndarray,
                     num_samples: int = 50000, device=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every grid point through ``eval_fn`` in chunks of ``num_samples``
-    (``surs_tpu/recon/evaluator.py:1110``); the tail chunk is padded
-    with the last index, as the JAX package does."""
+    (``surs_tpu/recon/evaluator.py:1110``) on ``device`` (CUDA unless
+    named); the tail chunk is padded with the last index, as the JAX
+    package does."""
     R = resolution
     R3 = R ** 3
     mat = np.asarray(mat)
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     chunk = min(num_samples, R3)
     hr_out = torch.empty(R3, device=device)
     lr_out = torch.empty(R3, device=device)

@@ -107,7 +107,10 @@ def k4_work(nr: int, zb: int, dtype: str = "bfloat16"):
 
 def k5_work(rows: int, n_idx: int, channels: int, elem_bytes: int = 2):
     """K5: gather n_idx rows of feat [rows, channels] by int32 index:
-    no arithmetic, feat and idx read once, the rows written once."""
+    no arithmetic, feat and idx read once, the rows written once. The
+    bound counts the map read once from device memory: a warm chain
+    whose map and output stay in the 50 MB L2 can run below it, so the
+    bound is compared only with a time taken with L2 cold."""
     nbytes = rows * channels * elem_bytes + n_idx * 4 \
         + n_idx * channels * elem_bytes
     return 0.0, float(nbytes)

@@ -113,7 +113,7 @@ def test_dense_generic_matches_jax(net):
         return hr[0], lr[0]
 
     mat = grid_matrix((R,) * 3, B_MIN, B_MAX)
-    got = eval_grid_dense(eval_fn, R, mat, num_samples=500)
+    got = eval_grid_dense(eval_fn, R, mat, num_samples=500, device="cpu")
     for g, w in zip(got, (want_hr, want_lr)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
                                    atol=1e-5)

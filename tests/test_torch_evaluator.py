@@ -53,7 +53,8 @@ def test_matches_numpy_oracle():
     mat = grid_matrix((R,) * 3, [-0.5] * 3, [0.5] * 3)
     ref_hr, ref_lr = oracle_octree(binary_sphere_eval, R, mat, thr, init)
     hr, lr = eval_grid_octree(sphere_torch, R, mat, thr,
-                              init_resolution=init, num_samples=1000)
+                              init_resolution=init, num_samples=1000,
+                              device="cpu")
     np.testing.assert_array_equal(hr.numpy(), ref_hr.astype(np.float32))
     np.testing.assert_array_equal(lr.numpy(), ref_lr.astype(np.float32))
 
@@ -78,7 +79,7 @@ def test_matches_jax_mono(R, init, with_mask):
     stats = {}
     hr, lr = eval_grid_octree(sphere_torch, R, mat, thr,
                               init_resolution=init, num_samples=1000,
-                              stats=stats, **kw_t)
+                              stats=stats, device="cpu", **kw_t)
     np.testing.assert_array_equal(hr.numpy(), np.asarray(want_hr))
     np.testing.assert_array_equal(lr.numpy(), np.asarray(want_lr))
     assert 0 < stats["queries"] < R ** 3
@@ -90,8 +91,8 @@ def test_mask_prunes_queries():
     mat = grid_matrix((R,) * 3, [-0.5] * 3, [0.5] * 3)
     full, pruned = {}, {}
     eval_grid_octree(sphere_torch, R, mat, 0.05, init_resolution=init,
-                     stats=full)
+                     stats=full, device="cpu")
     eval_grid_octree(sphere_torch, R, mat, 0.05, init_resolution=init,
                      silhouette=disc_mask(), silhouette_calib=CALIB,
-                     stats=pruned)
+                     stats=pruned, device="cpu")
     assert pruned["queries"] < full["queries"]

@@ -117,7 +117,8 @@ def test_runs_matches_port_mono(setup, with_mask):
     want = eval_grid_octree(
         eval_fn, R, mat, THRESHOLD, init_resolution=INIT, num_samples=997,
         silhouette=silhouette() if with_mask else None,
-        silhouette_calib=CALIB, silhouette_dilate=1, stats=mono)
+        silhouette_calib=CALIB, silhouette_dilate=1, stats=mono,
+        device="cpu")
     got = port_runs(setup, with_mask=with_mask, stats=runs)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-4)
