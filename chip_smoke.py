@@ -8,7 +8,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. build:   compile every CUDA kernel (K1 and K2 share one source, K3
               and K4 a second, K5 a third) with nvcc from the repository's
               sources (one nvcc per source, in parallel), with ptxas'
-              registers and spills per kernel.
+              registers, spills and warnings per kernel and, where the
+              toolkit has cuobjdump, the HGMMA count of each kernel's
+              SASS; the bf16 K3/K4 kernels must not spill and their chain
+              kernels must hold HGMMA.
   2. k1:      kernel K1 (fused dual MLP) against its plain PyTorch version
               on the card, at the serving shapes (N = 50,000 and a ragged
               49,999; the (256, 65) input split; full widths), in bf16 and
@@ -21,11 +24,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
   4. k3:      kernel K3 (column-shared dual MLP) against its plain version
               on a slice of the dense 512^3 grid (1,024 columns x 512
               depths and a ragged 1,023 x 500; the real depth features of
-              a 512 grid), in bf16 and float32; K3 timed on the whole grid
-              (262,144 columns x 512 depths, bf16), with the bound.
+              a 512 grid), in bf16 and float32, and in bf16 at 33,769
+              columns x 500 (two chunks of the wrapper, the second
+              ragged); K3 timed on the whole grid (262,144 columns x 512
+              depths, bf16) with its column-term pre-pass alone
+              (``cols_terms_ms``, held to its plain version) and the
+              bound; the whole grid's output held to the plain version at
+              2,048 seeded random columns.
   5. k4:      kernel K4 (window dual MLP) the same way at one chunk of the
-              runs evaluator (32,768 windows x 8 depths and a ragged
-              32,767; depth offsets of the 512 level), timed at 32,768.
+              runs evaluator (32,768 windows x 8 depths and ragged 32,767
+              and 17; depth offsets of the 512 level), timed at 32,768
+              with its pre-pass alone.
   6. k5:      kernel K5 (row gather, variants vec and loop) against its
               plain version, bit for bit, at the gather probe's shape
               (49,152 rows of a [16384, 256] bf16 map), a ragged 49,151
@@ -113,6 +122,10 @@ K2_TOL = 1e-5
 # in the plain version), which can flip an activation's bf16 rounding
 # now and then, as for K1. float32: the same products in another order.
 COLS_TOL = {"bfloat16": K1_TOL["bfloat16"], "float32": 1e-5}
+# the bf16 column-term pre-pass against its plain version, relative to
+# the largest term: both take the same bf16 products, summed in float32
+# in another order (320 terms, ~1e-7 relative each)
+TERMS_TOL = 1e-5
 # the float32 runs service against the float32 mono service at 128^3
 # (tests/test_evaluator_runs.py's tolerance): the window path feeds the
 # depth as kf + zt, the point path as one projected z, equal up to
@@ -122,6 +135,11 @@ RUNS_VS_MONO_TOL = 2e-4
 # the dense phase's shapes: a slice of the 512^3 grid, and the grid
 DENSE_R = 512
 SLICE_COLS = 1024
+# K3 at a column count that is not a multiple of the wrappers' chunk
+# (32,768 columns): two chunks, the second ragged
+K3_RAGGED_COLS = 32_768 + 1_001
+# columns of the whole dense grid held to the plain version
+GRID_SAMPLE_COLS = 2048
 # the runs evaluator's chunk of windows, and its window depth
 NWIN = 32_768
 ZB = 8
@@ -172,12 +190,15 @@ def time_cuda(fn, reps: int, warm: int = 2) -> float:
 
 
 KERNELS = ("fused_dual_mlp_bf16_kernel", "fused_dual_mlp_f32_kernel",
-           "fused_dual_mlp_train_f32_kernel",
-           "fused_dual_mlp_cols_bf16_kernel", "fused_dual_mlp_cols_f32_kernel",
-           "fused_dual_mlp_runs_bf16_kernel", "fused_dual_mlp_runs_f32_kernel",
+           "fused_dual_mlp_train_f32_kernel", "cols_terms_bf16_kernel",
+           "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_cols_f32_kernel",
+           "fused_dual_mlp_runs_wgmma_kernel", "fused_dual_mlp_runs_f32_kernel",
            "row_gather_vec_bf16_kernel", "row_gather_vec_f32_kernel",
            "row_gather_loop_bf16_kernel", "row_gather_loop_f32_kernel")
 SOURCES = ("fused_dual_mlp", "fused_cols_mlp", "row_gather")
+# the bf16 K3/K4 chain kernels, whose SASS must hold warpgroup MMAs
+WGMMA_KERNELS = ("fused_dual_mlp_cols_wgmma_kernel",
+                 "fused_dual_mlp_runs_wgmma_kernel")
 
 
 def ptxas_report(log: str):
@@ -198,21 +219,53 @@ def ptxas_report(log: str):
     return out
 
 
+def sass_hgmma(lib_path) -> dict:
+    """{kernel: count of HGMMA instructions} in a built library's SASS,
+    from cuobjdump; {} where the toolkit has no cuobjdump."""
+    tool = next((c for c in ("/usr/local/cuda/bin/cuobjdump",
+                             shutil.which("cuobjdump") or "")
+                 if c and os.path.isfile(c)), None)
+    if tool is None:
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = next((k for k in KERNELS if k in m.group(1)), None)
+            if cur:
+                out[cur] = 0
+        elif cur and "HGMMA" in ln:
+            out[cur] += 1
+    return out
+
+
 def phase_build():
     from surs_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     # a clean build from the checkout's sources, with its ptxas report
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
-    cuda_build.build(SOURCES)
-    ptxas = {}
+    libs = cuda_build.build(SOURCES)
+    ptxas, warnings = {}, []
     for _, log in cuda_build.BUILD_LOG.values():
         ptxas.update(ptxas_report(log))
+        warnings += [ln.strip() for ln in log.splitlines()
+                     if "warning" in ln.lower()]
+    hgmma = sass_hgmma(libs["fused_cols_mlp"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": {k: v[0] for k, v in cuda_build.BUILD_LOG.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "ptxas_warnings": warnings,
+          "sass_hgmma": hgmma or "no cuobjdump"})
     missing = [k for k in KERNELS if k not in ptxas]
     if missing:
         raise AssertionError(f"no ptxas report for {missing}")
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if any(k in spills for k in WGMMA_KERNELS + ("cols_terms_bf16_kernel",)):
+        raise AssertionError(f"the bf16 K3/K4 kernels spill: {spills}")
+    if hgmma and not all(hgmma.get(k) for k in WGMMA_KERNELS):
+        raise AssertionError(f"no HGMMA in the K3/K4 chain kernels: {hgmma}")
 
 
 def kernel_mlps():
@@ -362,9 +415,33 @@ def check_cols_kernel(phase, kernel, plain, args, dtype_name, shape):
     return rec
 
 
+def cols_weights(mlp_lr, mlp_hr, dtype):
+    from surs_tpu_torch.ops import fused_mlp as fm
+    return fm.prepare_cols_weights(mlp_lr, mlp_hr, 256, dtype=dtype)
+
+
+def check_terms(phase, cw, x_lr, x_hr, kf):
+    """The bf16 column-term pre-pass against its plain version; returns
+    its time."""
+    import torch
+    from surs_tpu_torch.ops import fused_mlp as fm
+    got = fm.column_terms(x_lr, x_hr, kf, cw)
+    torch.cuda.synchronize()
+    want = fm.column_terms_ref(x_lr, x_hr, kf, cw)
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    rec = {"phase": phase, "n": x_lr.shape[0], "kf": kf is not None,
+           "max_rel_err": err, "tol": TERMS_TOL}
+    if not (bool(torch.isfinite(got).all()) and err <= TERMS_TOL):
+        emit(rec)
+        raise AssertionError(f"the column-term pre-pass disagrees: {rec}")
+    return rec
+
+
 def phase_k3():
     """K3 against its plain version on a slice of the dense grid, in bf16
-    and float32; K3 and its plain version timed on the whole grid."""
+    and float32, and in bf16 at ragged shapes; K3, its pre-pass and its
+    plain version timed on the whole grid, whose output is held to the
+    plain version at sampled columns."""
     import torch
     from surs_tpu_torch import roofline
     from surs_tpu_torch.ops import fused_mlp as fm
@@ -373,11 +450,14 @@ def phase_k3():
     rng = np.random.default_rng(SEED + 2)
     zf = grid_depths()
     recs = []
+    shapes = {"bfloat16": ((SLICE_COLS, DENSE_R), (SLICE_COLS - 1, 500),
+                           (K3_RAGGED_COLS, 500)),
+              "float32": ((SLICE_COLS, DENSE_R), (SLICE_COLS - 1, 500))}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
-        fw = fm.prepare_fused_weights(mlp_lr, mlp_hr, dtype=dtype)
-        for ncol, z in ((SLICE_COLS, DENSE_R), (SLICE_COLS - 1, 500)):
-            args = (*seeded_features(rng, ncol), zf[:z].contiguous(), fw)
+        cw = cols_weights(mlp_lr, mlp_hr, dtype)
+        for ncol, z in shapes[dtype_name]:
+            args = (*seeded_features(rng, ncol), zf[:z].contiguous(), cw)
             rec = check_cols_kernel("k3", fm.fused_dual_mlp_cols,
                                     fm.fused_dual_mlp_cols_ref, args,
                                     dtype_name, (ncol, z))
@@ -390,25 +470,51 @@ def phase_k3():
             emit(rec)
             recs.append(rec)
     # the whole dense grid, bf16: the shape the dense path gives K3
-    fw = fm.prepare_fused_weights(mlp_lr, mlp_hr, dtype=torch.bfloat16)
+    cw = cols_weights(mlp_lr, mlp_hr, torch.bfloat16)
     ncol = DENSE_R * DENSE_R
-    args = (*seeded_features(rng, ncol), zf, fw)
+    x_lr, x_hr = seeded_features(rng, ncol)
+    args = (x_lr, x_hr, zf, cw)
+    terms = check_terms("k3_terms", cw, x_lr[:SLICE_COLS], x_hr[:SLICE_COLS],
+                        None)
     flops, nbytes = roofline.k3_work(ncol, DENSE_R, "bfloat16")
     b_ms, b_by = roofline.bound(flops, nbytes, "bfloat16")
     grid = {"phase": "k3_grid", "dtype": "bfloat16", "shape": [ncol, DENSE_R],
             "ms": time_cuda(lambda: fm.fused_dual_mlp_cols(*args), 3, warm=1),
+            "cols_terms_ms": time_cuda(
+                lambda: fm.column_terms(x_lr, x_hr, None, cw), 3),
+            "cols_terms_rel_err": terms["max_rel_err"],
             "plain_ms": time_cuda(lambda: fm.fused_dual_mlp_cols_ref(*args),
                                   1, warm=0),
             "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
             "library_ms": None}
     grid["tflops"] = flops / (grid["ms"] * 1e-3) / 1e12
+    # the whole grid's output at sampled columns, the plain version run on
+    # those columns' features alone: every chunk's offsets are exercised
+    hr, lr = fm.fused_dual_mlp_cols(*args)
+    torch.cuda.synchronize()
+    cols = torch.from_numpy(np.sort(rng.choice(ncol, GRID_SAMPLE_COLS,
+                                               replace=False))).cuda()
+    ref_hr, ref_lr = fm.fused_dual_mlp_cols_ref(x_lr[cols], x_hr[cols], zf,
+                                                cw)
+    grid["sampled_cols"] = GRID_SAMPLE_COLS
+    grid["sampled_max_abs_err"] = max(
+        (hr[cols] - ref_hr).abs().max().item(),
+        (lr[cols] - ref_lr).abs().max().item())
+    grid["tol"] = COLS_TOL["bfloat16"]
     emit(grid)
+    del hr, lr
+    if not (bool(torch.isfinite(ref_hr).all())
+            and grid["sampled_max_abs_err"] <= COLS_TOL["bfloat16"]):
+        raise AssertionError(f"K3's whole grid disagrees: {grid}")
+    recs.append({"dtype": "bfloat16",
+                 "max_abs_err": grid["sampled_max_abs_err"]})
     return {"checks": recs, "grid": grid}
 
 
 def phase_k4():
     """K4 against its plain version at one chunk of the runs evaluator,
-    in bf16 and float32, with the depth offsets of the 512 level."""
+    in bf16 and float32, with the depth offsets of the 512 level, and at
+    ragged window counts; K4 and its pre-pass timed at one chunk."""
     import torch
     from surs_tpu_torch import roofline
     from surs_tpu_torch.ops import fused_mlp as fm
@@ -419,13 +525,15 @@ def phase_k4():
     zt = zf[:ZB].contiguous()
     kf_all = zf - zf[0]
     recs, main = [], None
+    counts = {"bfloat16": (NWIN, NWIN - 1, 17), "float32": (NWIN, NWIN - 1)}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
-        fw = fm.prepare_fused_weights(mlp_lr, mlp_hr, dtype=dtype)
-        for nr in (NWIN, NWIN - 1):
+        cw = cols_weights(mlp_lr, mlp_hr, dtype)
+        for nr in counts[dtype_name]:
             k0 = torch.from_numpy(rng.integers(0, DENSE_R // ZB, nr) * ZB)
             kf = kf_all[k0.cuda()].contiguous()
-            args = (*seeded_features(rng, nr), kf, zt, fw)
+            x_lr, x_hr = seeded_features(rng, nr)
+            args = (x_lr, x_hr, kf, zt, cw)
             rec = check_cols_kernel("k4", fm.fused_dual_mlp_runs,
                                     fm.fused_dual_mlp_runs_ref, args,
                                     dtype_name, (nr, ZB))
@@ -440,6 +548,11 @@ def phase_k4():
                     library_ms=None)
                 rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
                 if dtype_name == "bfloat16":
+                    terms = check_terms("k4_terms", cw, x_lr, x_hr, kf)
+                    rec.update(
+                        cols_terms_ms=time_cuda(
+                            lambda: fm.column_terms(x_lr, x_hr, kf, cw), 20),
+                        cols_terms_rel_err=terms["max_rel_err"])
                     main = rec
             emit(rec)
             recs.append(rec)

@@ -19,8 +19,12 @@ chain of the TPU's ``_cols_chain``: every point of a grid column shares
 its sampled features, so each input-reading layer takes a per-column
 term once and a rank-1 depth term per sample; K3 expands one column over
 Z depths, K4 one 8-deep window per row of ``x`` at its own depth offset
-``kf``. They read K1's packing (``prepare_cols_weights``); their CUDA
-source is ``csrc/fused_cols_mlp.cu``.
+``kf``. Their CUDA source is ``csrc/fused_cols_mlp.cu``. In bf16 each
+runs as two kernels per chunk of columns: a pre-pass writes the column
+terms (``column_terms``), then the hidden chain runs on wgmma over
+weights that ``prepare_cols_weights`` repacks into ring stages
+(``hidden_stages``, ``stage_index``); in float32 one FMA kernel reads
+K1's packing.
 
 ``prepare_fused_weights`` packs each MLP's weights into one flat buffer
 in the compute dtype, each layer split into the row block that
@@ -40,7 +44,7 @@ sigmoid are float32.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -338,25 +342,233 @@ def make_fused_dual_mlp_train_ad():
 
 
 # ----------------------------------------------------------- K3 and K4 ---
+# The bf16 K3/K4 (csrc/fused_cols_mlp.cu) run in two kernels per chunk of
+# columns: a pre-pass that writes the column terms of every layer that
+# reads the input, and the hidden chain on wgmma.
+#
+# Column terms, float32, per column (or window): for each MLP (lr, hr) the
+# outputs of layers 0, 2, 3 and 4 at these offsets, then 3 pads.
+FEAT = 320                      # feature rows of the input (lr + hr)
+TERM_LAYERS = ((0, 0), (2, 1024), (3, 1280), (4, 1408))   # (layer, offset)
+TERMS_MLP = 1412
+TERMS_COLS = 2 * TERMS_MLP
+TERMS_ROWS = 2880               # rows of the packed W_feat: TERMS_COLS up to 64
+TERMS_BLOCK = 128               # columns per pre-pass block (buffer row pad)
+# columns (K3) or windows (K4) per pre-pass / chain launch pair: bounds
+# the column-term buffer at 32,768 x 2,824 x 4 bytes = 370 MB
+CHUNK_COLS = 32768
+# a ring stage of the hidden weights: 64 k x 128 n
+STAGE_K, STAGE_N = 64, 128
+
+
+class ColsPacked(NamedTuple):
+    """The bf16 K3/K4's buffers, built from K1's packing."""
+    wfeat: torch.Tensor   # [TERMS_ROWS, FEAT] W_feat transposed, compute dtype
+    cvec: torch.Tensor    # [3, TERMS_COLS] float32: depth rows, prediction
+                          # rows, biases, in the column-term layout
+    hvec: torch.Tensor    # [2, 640] float32 per MLP: b1 | w4h
+    whid: torch.Tensor    # [2, 84, 8192] W1h, W2h, W3h in ring stages
+
+
 class ColsWeights(NamedTuple):
     """Weights of the column kernels: K1's packing, whose x block already
     holds every row they read (features, then the depth row, then the
-    coarse-prediction row), and the (C_lr, C_hr) feature split."""
+    coarse-prediction row), the (C_lr, C_hr) feature split, and the bf16
+    kernels' repacking (None unless the widths are the kernel's)."""
     fw: FusedWeights
     split: Tuple[int, int]
+    packed: Optional[ColsPacked] = None
+
+
+def hidden_stages() -> List[Tuple[int, int, int]]:
+    """(layer, k0, n0) of the 84 ring stages of one MLP's hidden weights,
+    in the order the bf16 K3/K4 consume them: layer 1 in two halves of 256
+    outputs, each 16 k-chunks of 64 x two 128-wide blocks; layer 2, 8
+    k-chunks x 2; layer 3, 4 k-chunks."""
+    d = KERNEL_DIMS_LR
+    out = []
+    for half in range(d[2] // 256):
+        for kc in range(d[1] // STAGE_K):
+            for q in range(256 // STAGE_N):
+                out.append((1, kc * STAGE_K, half * 256 + q * STAGE_N))
+    for kc in range(d[2] // STAGE_K):
+        for q in range(d[3] // STAGE_N):
+            out.append((2, kc * STAGE_K, q * STAGE_N))
+    for kc in range(d[3] // STAGE_K):
+        out.append((3, kc * STAGE_K, 0))
+    return out
+
+
+def stage_index(device=None) -> torch.Tensor:
+    """[64, 128] int64: where element (k, n) of a stage's [64 k, 128 n]
+    block of W [in, out] sits among the stage's 8,192 elements. K-major
+    with the 128-byte swizzle, as the wgmma descriptor reads it: output
+    n is a row of 64 k (128 bytes), 8 rows make a 1,024-byte atom, and
+    16-byte chunk k // 8 of row n sits at chunk (k // 8) ^ (n % 8):
+    n * 64 + ((k // 8) ^ (n % 8)) * 8 + k % 8."""
+    k = torch.arange(STAGE_K, device=device)[:, None]
+    n = torch.arange(STAGE_N, device=device)[None, :]
+    return n * STAGE_K + ((k // 8) ^ (n % 8)) * 8 + k % 8
+
+
+def _hidden_blocks(w: torch.Tensor, spec: MLPSpec, xk: int):
+    """{1: W1h, 2: W2h, 3: W3h} [in, out]: views of K1's packing."""
+    blocks = {}
+    for i in (1, 2, 3):
+        (off, rows), _, _, n = _layout(spec, xk)[i]
+        blocks[i] = w[off:off + rows * n].view(rows, n)
+    return blocks
+
+
+def _pack_hidden(w: torch.Tensor, spec: MLPSpec, xk: int) -> torch.Tensor:
+    """One MLP's W1h, W2h, W3h as [84, 8192] ring stages."""
+    blocks = _hidden_blocks(w, spec, xk)
+    idx = stage_index(w.device).reshape(-1)
+    stages = w.new_empty((len(hidden_stages()), STAGE_K * STAGE_N))
+    for s, (layer, k0, n0) in enumerate(hidden_stages()):
+        stages[s, idx] = blocks[layer][k0:k0 + STAGE_K,
+                                       n0:n0 + STAGE_N].reshape(-1)
+    return stages
+
+
+def unpack_hidden(stages: torch.Tensor):
+    """Inverse of the stage packing: {1: W1h, 2: W2h, 3: W3h} [in, out]
+    from one MLP's [84, 8192] stages."""
+    d = KERNEL_DIMS_LR
+    blocks = {i: stages.new_empty((d[i], d[i + 1])) for i in (1, 2, 3)}
+    idx = stage_index(stages.device)
+    for s, (layer, k0, n0) in enumerate(hidden_stages()):
+        blocks[layer][k0:k0 + STAGE_K, n0:n0 + STAGE_N] = stages[s][idx]
+    return blocks
+
+
+def _pack_terms(w, b, spec: MLPSpec, xk: int):
+    """One MLP's W_feat [TERMS_MLP, FEAT] (term-major), its depth,
+    prediction and bias rows [3, TERMS_MLP] and its b1 | w4h [640]."""
+    layout = _layout(spec, xk)
+    wf = w.new_zeros((TERMS_MLP, FEAT))
+    cv = torch.zeros((3, TERMS_MLP), dtype=torch.float32, device=w.device)
+    for i, off in TERM_LAYERS:
+        _, xb, bo, n = layout[i]
+        wx = w[xb[0]:xb[0] + xk * n].view(xk, n)
+        wf[off:off + n] = wx[:FEAT].t()
+        cv[0, off:off + n] = wx[FEAT].float()
+        cv[1, off:off + n] = wx[FEAT + 1].float()
+        cv[2, off:off + n] = b[bo:bo + n]
+    h4 = layout[4][0]
+    _, _, bo1, n1 = layout[1]
+    hv = torch.cat([b[bo1:bo1 + n1], w[h4[0]:h4[0] + h4[1]].float()])
+    return wf, cv, hv
+
+
+def _pack_cols(fw: FusedWeights) -> ColsPacked:
+    lr = _pack_terms(fw.w_lr, fw.b_lr, fw.spec_lr, fw.xk)
+    hr = _pack_terms(fw.w_hr, fw.b_hr, fw.spec_hr, fw.xk)
+    wfeat = torch.cat([lr[0], hr[0], lr[0].new_zeros(
+        (TERMS_ROWS - TERMS_COLS, FEAT))])
+    return ColsPacked(
+        wfeat.contiguous(), torch.cat([lr[1], hr[1]], 1).contiguous(),
+        torch.stack([lr[2], hr[2]]).contiguous(),
+        torch.stack([_pack_hidden(fw.w_lr, fw.spec_lr, fw.xk),
+                     _pack_hidden(fw.w_hr, fw.spec_hr, fw.xk)]).contiguous())
+
+
+def _kernel_widths(fw: FusedWeights) -> bool:
+    return (fw.spec_lr.dims == KERNEL_DIMS_LR
+            and fw.spec_hr.dims == KERNEL_DIMS_HR
+            and fw.spec_lr.res_layers == KERNEL_RES_LAYERS
+            and fw.spec_hr.res_layers == KERNEL_RES_LAYERS)
 
 
 def prepare_cols_weights(mlp_lr, mlp_hr, hg_dim: int = 256,
                          dtype=torch.float32) -> ColsWeights:
     """K3/K4 weights (``surs_tpu/ops/fused_mlp.py:prepare_cols_weights``):
-    lr features (``hg_dim``) | hr features | depth. No second buffer: the
-    TPU's ``base_split`` only gave each segment its own 128-lane block."""
+    lr features (``hg_dim``) | hr features | depth, in K1's packing (the
+    TPU's ``base_split`` only gave each segment its own 128-lane block),
+    and, at the kernel's widths, the bf16 kernels' repacking of the same
+    weights (``ColsPacked``, in ``dtype`` too)."""
     fw = prepare_fused_weights(mlp_lr, mlp_hr, dtype)
     c_hr = fw.spec_lr.dims[0] - 1 - hg_dim
     if hg_dim <= 0 or c_hr <= 0:
         raise ValueError(f"hg_dim {hg_dim} leaves no hr features in an "
                          f"input of {fw.spec_lr.dims[0]}")
-    return ColsWeights(fw, (hg_dim, c_hr))
+    return ColsWeights(fw, (hg_dim, c_hr),
+                       _pack_cols(fw) if _kernel_widths(fw) else None)
+
+
+def _fw_of(w) -> FusedWeights:
+    return w.fw if isinstance(w, ColsWeights) else w
+
+
+def column_terms_ref(x_lr: torch.Tensor, x_hr: torch.Tensor, kf,
+                     cw: ColsWeights) -> torch.Tensor:
+    """Plain PyTorch version of the column-term pre-pass: the features
+    rounded to the compute dtype, times W_feat, plus ``kf * w_z`` (kf
+    [n] or None) and the bias, in float32: [n, TERMS_COLS], the terms of
+    layers 0, 2, 3, 4 of each MLP at ``TERM_LAYERS`` (pads 0)."""
+    pk = cw.packed
+    x = torch.cat([x_lr.float(), x_hr.float()], 1).to(pk.wfeat.dtype).float()
+    out = x @ pk.wfeat[:TERMS_COLS].float().t() + pk.cvec[2]
+    if kf is not None:
+        out = out + kf.float()[:, None] * pk.cvec[0]
+    return out
+
+
+def chunk_plan(n: int, chunk: int = CHUNK_COLS) -> List[Tuple[int, int]]:
+    """[start, stop) of each chunk of ``n`` columns the bf16 K3/K4
+    wrappers launch on, in order: every column once, the last chunk
+    ragged."""
+    return [(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+
+
+def _check_packed(cw) -> ColsPacked:
+    if not isinstance(cw, ColsWeights) or cw.packed is None:
+        raise ValueError("the bf16 column kernels take prepare_cols_weights' "
+                         "ColsWeights at the kernel's widths")
+    return cw.packed
+
+
+def _launch_terms(lib, x_lr, x_hr, kf, pk: ColsPacked, terms, stream):
+    rc = lib.surs_cols_terms_bf16(
+        x_lr.data_ptr(), x_hr.data_ptr(), x_lr.shape[1],
+        None if kf is None else kf.data_ptr(), x_lr.shape[0],
+        pk.wfeat.data_ptr(), pk.cvec.data_ptr(), terms.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("column-term pre-pass launch failed: "
+                           + lib.surs_cuda_error_string(rc).decode())
+
+
+def _terms_buffer(rows: int, dev) -> torch.Tensor:
+    return torch.empty((-(-rows // TERMS_BLOCK) * TERMS_BLOCK, TERMS_COLS),
+                       dtype=torch.float32, device=dev)
+
+
+def column_terms(x_lr: torch.Tensor, x_hr: torch.Tensor, kf,
+                 cw: ColsWeights) -> torch.Tensor:
+    """The column-term pre-pass of the bf16 K3/K4 alone (x_lr [n, C_lr],
+    x_hr [n, C_hr], kf [n] or None, float32) -> [n, TERMS_COLS] float32.
+    CUDA tensors launch ``cols_terms_bf16_kernel`` (counted in
+    ``column_terms.launches``); CPU tensors take
+    :func:`column_terms_ref`."""
+    pk = _check_packed(cw)
+    if _check_cols_inputs(x_lr, x_hr, cw.fw, []):
+        return column_terms_ref(x_lr, x_hr, kf, cw)
+    ins = [x_lr, x_hr] + ([] if kf is None else [kf])
+    _check_kernel_inputs(ins, cw.fw)
+    if pk.wfeat.dtype != torch.bfloat16:
+        raise ValueError("the column-term pre-pass is built for bf16 "
+                         f"weights, got {pk.wfeat.dtype}")
+    terms = _terms_buffer(x_lr.shape[0], x_lr.device)
+    if x_lr.shape[0]:
+        lib = _kernel_lib("fused_cols_mlp")
+        with torch.cuda.device(x_lr.device):
+            _launch_terms(lib, x_lr, x_hr, kf, pk, terms,
+                          torch.cuda.current_stream().cuda_stream)
+        column_terms.launches += 1
+    return terms[:x_lr.shape[0]]
+
+
+column_terms.launches = 0
 
 
 # points per chunk of the plain versions: bounds their [rows, 1024]
@@ -425,25 +637,25 @@ def _chunked(x_lr, x_hr, kf, zf, fw):
 
 
 def fused_dual_mlp_cols_ref(x_lr: torch.Tensor, x_hr: torch.Tensor,
-                            zf: torch.Tensor, fw: FusedWeights
+                            zf: torch.Tensor, fw
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3, rounding where the Pallas body
     ``_kernel_cols`` rounds (features cast before their product, the
     depth term ``zf * w_z`` rounded after it, pred_lr not rounded):
-    x_lr [Ncol, C_lr], x_hr [Ncol, C_hr], zf [Z] ->
-    (pred_hr [Ncol, Z], pred_lr [Ncol, Z]) float32, in column chunks."""
-    return _chunked(x_lr, x_hr, None, zf, fw)
+    x_lr [Ncol, C_lr], x_hr [Ncol, C_hr], zf [Z], ``fw`` FusedWeights or
+    ColsWeights -> (pred_hr [Ncol, Z], pred_lr [Ncol, Z]) float32, in
+    column chunks."""
+    return _chunked(x_lr, x_hr, None, zf, _fw_of(fw))
 
 
 def fused_dual_mlp_runs_ref(x_lr: torch.Tensor, x_hr: torch.Tensor,
-                            kf: torch.Tensor, zt: torch.Tensor,
-                            fw: FusedWeights
+                            kf: torch.Tensor, zt: torch.Tensor, fw
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K4: window w, depth t has the depth
     feature kf[w] + zt[t], with ``kf * w_z`` in float32 (unrounded) and
     ``zt * w_z`` rounded as K3's depth term. x_lr [NR, C_lr], x_hr
     [NR, C_hr], kf [NR], zt [zb] -> ([NR, zb], [NR, zb]) float32."""
-    return _chunked(x_lr, x_hr, kf, zt, fw)
+    return _chunked(x_lr, x_hr, kf, zt, _fw_of(fw))
 
 
 def _check_cols_inputs(x_lr, x_hr, fw: FusedWeights, depth_shapes) -> bool:
@@ -467,29 +679,64 @@ def _check_cols_inputs(x_lr, x_hr, fw: FusedWeights, depth_shapes) -> bool:
     return dev.type == "cpu"
 
 
-def _cols_fn(kind: str, fw: FusedWeights) -> str:
-    return (f"surs_fused_dual_mlp_{kind}_bf16"
-            if fw.w_lr.dtype == torch.bfloat16
-            else f"surs_fused_dual_mlp_{kind}_f32")
+def _cols_wgmma(wrapper, x_lr, x_hr, kf, zf, cw, z: int, launch):
+    """The bf16 K3/K4: per chunk of columns, the pre-pass into one reused
+    column-term buffer, then the chain kernel (``launch(lib, terms, s, e,
+    out_hr, out_lr, stream)``); one count on ``wrapper`` per call."""
+    pk = _check_packed(cw)
+    n, dev = x_lr.shape[0], x_lr.device
+    out_hr = torch.empty((n, z), dtype=torch.float32, device=dev)
+    out_lr = torch.empty((n, z), dtype=torch.float32, device=dev)
+    if out_hr.numel() == 0:
+        return out_hr, out_lr
+    lib = _kernel_lib("fused_cols_mlp")
+    plan = chunk_plan(n)
+    terms = _terms_buffer(plan[0][1] - plan[0][0], dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s, e in plan:
+            _launch_terms(lib, x_lr[s:e], x_hr[s:e],
+                          None if kf is None else kf[s:e], pk, terms, stream)
+            rc = launch(lib, terms, s, e, out_hr, out_lr, stream)
+            if rc != 0:
+                raise RuntimeError(f"{wrapper.__name__} launch failed: "
+                                   + lib.surs_cuda_error_string(rc).decode())
+    wrapper.launches += 1
+    return out_hr, out_lr
 
 
 def fused_dual_mlp_cols(x_lr: torch.Tensor, x_hr: torch.Tensor,
-                        zf: torch.Tensor, fw: FusedWeights
+                        zf: torch.Tensor, fw
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Column-shared dual MLP (``surs_tpu/ops/fused_mlp.py:576``): x_lr
     [Ncol, C_lr], x_hr [Ncol, C_hr] per-column features, zf [Z] the
     shared depth features -> (pred_hr [Ncol, Z], pred_lr [Ncol, Z])
-    float32, the [column, depth] volume layout. Any Z. CUDA tensors
-    launch kernel K3 (counted in ``fused_dual_mlp_cols.launches``); CPU
+    float32, the [column, depth] volume layout. Any Z. ``fw``: the
+    ColsWeights of :func:`prepare_cols_weights` (or, float32 and CPU
+    only, their FusedWeights). CUDA tensors launch kernel K3 (bf16: the
+    pre-pass and the wgmma chain per chunk of ``CHUNK_COLS`` columns;
+    counted once per call in ``fused_dual_mlp_cols.launches``); CPU
     tensors take :func:`fused_dual_mlp_cols_ref`; anything else
     raises."""
-    if _check_cols_inputs(x_lr, x_hr, fw, [(zf, (zf.shape[0],))]):
-        return fused_dual_mlp_cols_ref(x_lr, x_hr, zf, fw)
-    _check_kernel_inputs([x_lr, x_hr, zf], fw)
+    w = _fw_of(fw)
+    if _check_cols_inputs(x_lr, x_hr, w, [(zf, (zf.shape[0],))]):
+        return fused_dual_mlp_cols_ref(x_lr, x_hr, zf, w)
+    _check_kernel_inputs([x_lr, x_hr, zf], w)
     ncol, z = x_lr.shape[0], zf.shape[0]
-    return _launch(fused_dual_mlp_cols, "fused_cols_mlp", _cols_fn("cols", fw),
-                   fw, (ncol, z), (x_lr.data_ptr(), x_hr.data_ptr(),
-                                   x_lr.shape[1], zf.data_ptr(), ncol, z))
+    if w.w_lr.dtype == torch.float32:
+        return _launch(fused_dual_mlp_cols, "fused_cols_mlp",
+                       "surs_fused_dual_mlp_cols_f32", w, (ncol, z),
+                       (x_lr.data_ptr(), x_hr.data_ptr(), x_lr.shape[1],
+                        zf.data_ptr(), ncol, z))
+    pk = _check_packed(fw)
+
+    def launch(lib, terms, s, e, out_hr, out_lr, stream):
+        return lib.surs_fused_dual_mlp_cols_wgmma(
+            terms.data_ptr(), zf.data_ptr(), e - s, z, pk.whid.data_ptr(),
+            pk.cvec.data_ptr(), pk.hvec.data_ptr(), out_hr[s:e].data_ptr(),
+            out_lr[s:e].data_ptr(), stream)
+    return _cols_wgmma(fused_dual_mlp_cols, x_lr, x_hr, None, zf, fw, z,
+                       launch)
 
 
 fused_dual_mlp_cols.launches = 0
@@ -499,27 +746,39 @@ RUNS_WINDOW = 8
 
 
 def fused_dual_mlp_runs(x_lr: torch.Tensor, x_hr: torch.Tensor,
-                        kf: torch.Tensor, zt: torch.Tensor, fw: FusedWeights
+                        kf: torch.Tensor, zt: torch.Tensor, fw
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Window dual MLP (``surs_tpu/ops/fused_mlp.py:728``): x_lr
     [NR, C_lr], x_hr [NR, C_hr] per-window column features, kf [NR]
     float32 per-window depth offsets, zt [zb] the shared in-window
     depths -> ([NR, zb], [NR, zb]) float32; row (w, t) is scored at
-    depth feature kf[w] + zt[t]. CUDA tensors launch kernel K4 (zb = 8;
-    counted in ``fused_dual_mlp_runs.launches``); CPU tensors take
+    depth feature kf[w] + zt[t]. ``fw`` as for :func:`fused_dual_mlp_cols`.
+    CUDA tensors launch kernel K4 (zb = 8; bf16 in chunks as K3; counted
+    once per call in ``fused_dual_mlp_runs.launches``); CPU tensors take
     :func:`fused_dual_mlp_runs_ref`; anything else raises."""
+    w = _fw_of(fw)
     nr = x_lr.shape[0]
-    if _check_cols_inputs(x_lr, x_hr, fw, [(kf, (nr,)),
-                                           (zt, (zt.shape[0],))]):
-        return fused_dual_mlp_runs_ref(x_lr, x_hr, kf, zt, fw)
+    if _check_cols_inputs(x_lr, x_hr, w, [(kf, (nr,)),
+                                          (zt, (zt.shape[0],))]):
+        return fused_dual_mlp_runs_ref(x_lr, x_hr, kf, zt, w)
     if zt.shape[0] != RUNS_WINDOW:
         raise ValueError(f"K4 is built for {RUNS_WINDOW}-deep windows, got "
                          f"zt of {zt.shape[0]}")
-    _check_kernel_inputs([x_lr, x_hr, kf, zt], fw)
-    return _launch(fused_dual_mlp_runs, "fused_cols_mlp", _cols_fn("runs", fw),
-                   fw, (nr, RUNS_WINDOW),
-                   (x_lr.data_ptr(), x_hr.data_ptr(), x_lr.shape[1],
-                    kf.data_ptr(), zt.data_ptr(), nr))
+    _check_kernel_inputs([x_lr, x_hr, kf, zt], w)
+    if w.w_lr.dtype == torch.float32:
+        return _launch(fused_dual_mlp_runs, "fused_cols_mlp",
+                       "surs_fused_dual_mlp_runs_f32", w, (nr, RUNS_WINDOW),
+                       (x_lr.data_ptr(), x_hr.data_ptr(), x_lr.shape[1],
+                        kf.data_ptr(), zt.data_ptr(), nr))
+    pk = _check_packed(fw)
+
+    def launch(lib, terms, s, e, out_hr, out_lr, stream):
+        return lib.surs_fused_dual_mlp_runs_wgmma(
+            terms.data_ptr(), zt.data_ptr(), e - s, pk.whid.data_ptr(),
+            pk.cvec.data_ptr(), pk.hvec.data_ptr(), out_hr[s:e].data_ptr(),
+            out_lr[s:e].data_ptr(), stream)
+    return _cols_wgmma(fused_dual_mlp_runs, x_lr, x_hr, kf, zt, fw,
+                       RUNS_WINDOW, launch)
 
 
 fused_dual_mlp_runs.launches = 0
@@ -552,19 +811,21 @@ def _launch(wrapper, lib_name: str, fn_name: str, fw: FusedWeights, shape,
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# each library's entry points: the arguments before the weights, the
-# outputs and the stream (7 pointers, common to all)
+# the weights, the outputs and the stream of the K1-style entry points
+_W7 = [_P] * 7
+# each library's entry points and their argument types
 _SIGNATURES = {
     "fused_dual_mlp": {
-        "surs_fused_dual_mlp_bf16": [_P, _I, _P, _I, _I],
-        "surs_fused_dual_mlp_f32": [_P, _I, _P, _I, _I],
-        "surs_fused_dual_mlp_train_f32": [_P, _P, _P, _I, _I],
+        "surs_fused_dual_mlp_bf16": [_P, _I, _P, _I, _I] + _W7,
+        "surs_fused_dual_mlp_f32": [_P, _I, _P, _I, _I] + _W7,
+        "surs_fused_dual_mlp_train_f32": [_P, _P, _P, _I, _I] + _W7,
     },
     "fused_cols_mlp": {
-        "surs_fused_dual_mlp_cols_bf16": [_P, _P, _I, _P, _I, _I],
-        "surs_fused_dual_mlp_cols_f32": [_P, _P, _I, _P, _I, _I],
-        "surs_fused_dual_mlp_runs_bf16": [_P, _P, _I, _P, _P, _I],
-        "surs_fused_dual_mlp_runs_f32": [_P, _P, _I, _P, _P, _I],
+        "surs_fused_dual_mlp_cols_f32": [_P, _P, _I, _P, _I, _I] + _W7,
+        "surs_fused_dual_mlp_runs_f32": [_P, _P, _I, _P, _P, _I] + _W7,
+        "surs_cols_terms_bf16": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
+        "surs_fused_dual_mlp_cols_wgmma": [_P, _P, _I, _I] + [_P] * 6,
+        "surs_fused_dual_mlp_runs_wgmma": [_P, _P, _I] + [_P] * 6,
     },
 }
 
@@ -573,9 +834,9 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     from .cuda_build import load
     lib = load(name)
     if not getattr(lib, "_surs_bound", False):
-        for fn_name, head in _SIGNATURES[name].items():
+        for fn_name, argtypes in _SIGNATURES[name].items():
             fn = getattr(lib, fn_name)
-            fn.argtypes = head + [_P] * 7
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.surs_cuda_error_string.argtypes = [ctypes.c_int]
         lib.surs_cuda_error_string.restype = ctypes.c_char_p

@@ -340,7 +340,7 @@ def eval_grid_dense_cols(cols_weights, feat_lr, feat_hr, calib,
     uv = xyz[:, :2, :].transpose(1, 2)
     x_lr = grid_sample_points(feat_lr, uv)[0]
     x_hr = grid_sample_points(feat_hr, uv)[0]
-    hr, lr = fused_dual_mlp_cols(x_lr, x_hr, zf, cols_weights.fw)
+    hr, lr = fused_dual_mlp_cols(x_lr, x_hr, zf, cols_weights)
     hr.mul_(mask[:, None])
     lr.mul_(mask[:, None])
     return hr.view(R, R, R), lr.view(R, R, R)

@@ -107,7 +107,7 @@ def eval_grid_octree_runs(cols_weights, feat_lr, feat_hr, calib,
             hr, lr = fused_dual_mlp_runs(
                 grid_sample_points(feat_lr, uv)[0],
                 grid_sample_points(feat_hr, uv)[0],
-                kf_all[k0].contiguous(), zt, cols_weights.fw)
+                kf_all[k0].contiguous(), zt, cols_weights)
             # only the window's dirty points take the new values
             ok = bits[w]
             tgt = ((cid * L + k0)[:, None] + tvec[None, :])[ok]

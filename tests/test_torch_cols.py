@@ -209,3 +209,113 @@ def test_cpu_tensors_take_the_plain_versions(mlps):
     fm.fused_dual_mlp_runs(x_lr, x_hr, torch.zeros(2), torch.zeros(8), fw)
     assert (fm.fused_dual_mlp_cols.launches,
             fm.fused_dual_mlp_runs.launches) == before
+
+
+# --------------------------------------------- the bf16 kernels' packing ---
+@pytest.mark.parametrize("bf16", [False, True])
+def test_hidden_stages_unpack_to_the_packed_blocks(mlps, bf16):
+    """prepare_cols_weights' ring stages, read back through the
+    documented index map (stage_index), are K1's [in, out] hidden blocks
+    exactly, for both MLPs; the map is a permutation of each stage."""
+    _, _, t_lr, t_hr = mlps
+    cw = fm.prepare_cols_weights(
+        t_lr, t_hr, C_LR, dtype=torch.bfloat16 if bf16 else torch.float32)
+    idx = fm.stage_index().reshape(-1)
+    assert torch.equal(idx.sort().values, torch.arange(fm.STAGE_K
+                                                       * fm.STAGE_N))
+    whid = cw.packed.whid
+    assert tuple(whid.shape) == (2, len(fm.hidden_stages()), 8192)
+    assert whid.dtype == cw.fw.w_lr.dtype
+    for m, (w, spec) in enumerate(((cw.fw.w_lr, cw.fw.spec_lr),
+                                   (cw.fw.w_hr, cw.fw.spec_hr))):
+        want = fm._hidden_blocks(w, spec, cw.fw.xk)
+        got = fm.unpack_hidden(whid[m])
+        for i in (1, 2, 3):
+            assert torch.equal(got[i], want[i]), (m, i)
+    # each stage is one [64, 128] block of W, every block covered once
+    seen = {i: torch.zeros(DIMS_LR[i], DIMS_LR[i + 1], dtype=torch.int32)
+            for i in (1, 2, 3)}
+    for layer, k0, n0 in fm.hidden_stages():
+        seen[layer][k0:k0 + fm.STAGE_K, n0:n0 + fm.STAGE_N] += 1
+    assert all(bool((s == 1).all()) for s in seen.values())
+
+
+def test_cols_packing_vectors(mlps):
+    """cvec holds each term's depth row, prediction row (zero padding in
+    the coarse MLP) and bias; hvec each MLP's b1 and w4h; wfeat the
+    feature rows, transposed, zero past the terms."""
+    _, _, t_lr, t_hr = mlps
+    cw = fm.prepare_cols_weights(t_lr, t_hr, C_LR)
+    pk, fw = cw.packed, cw.fw
+    for m, (w, b, spec) in enumerate(((fw.w_lr, fw.b_lr, fw.spec_lr),
+                                      (fw.w_hr, fw.b_hr, fw.spec_hr))):
+        layout = fm._layout(spec, fw.xk)
+        for i, off in fm.TERM_LAYERS:
+            _, xb, bo, n = layout[i]
+            wx = w[xb[0]:xb[0] + fw.xk * n].view(fw.xk, n)
+            o = m * fm.TERMS_MLP + off
+            assert torch.equal(pk.wfeat[o:o + n], wx[:fm.FEAT].t())
+            assert torch.equal(pk.cvec[0, o:o + n], wx[fm.FEAT])
+            assert torch.equal(pk.cvec[1, o:o + n], wx[fm.FEAT + 1])
+            assert torch.equal(pk.cvec[2, o:o + n], b[bo:bo + n])
+        assert torch.equal(pk.hvec[m, :512], b[1024:1536])
+        h4 = layout[4][0]
+        assert torch.equal(pk.hvec[m, 512:], w[h4[0]:h4[0] + 128])
+    assert not pk.cvec[1, :fm.TERMS_MLP].any()
+    assert not pk.wfeat[fm.TERMS_COLS:].any()
+
+
+@pytest.mark.parametrize("with_kf", [False, True])
+def test_column_terms_plain_matches_jax_column_product(mlps, with_kf):
+    """The pre-pass's plain version against the column product of the
+    JAX package's ``_cols_chain`` (``x_lr . W[seg0] + x_hr . W[seg1]``,
+    ``+ kf * W[z_row]`` for windows, + the bias) at the rows
+    ``_cols_layer_offsets`` names, layers 0, 2, 3, 4 of both MLPs,
+    float32 at rtol 1e-5 / atol 1e-6."""
+    jfw, fw = weights(mlps)
+    _, _, t_lr, t_hr = mlps
+    cw = fm.prepare_cols_weights(t_lr, t_hr, C_LR)
+    x_lr, x_hr = features(5, seed=13)
+    kf = (np.random.default_rng(14).standard_normal(5).astype(np.float32)
+          if with_kf else None)
+    want = np.zeros((5, fm.TERMS_COLS), np.float32)
+    for m, (ws, bs, spec) in enumerate(((jfw.lr_w, jfw.lr_b, jfw.spec_lr),
+                                        (jfw.hr_w, jfw.hr_b, jfw.spec_hr))):
+        for i, off in fm.TERM_LAYERS:
+            _, seg, z_row, _ = jfm._cols_layer_offsets(spec, i)
+            W, n = ws[i], spec.dims[i + 1]
+            col = (jnp.dot(jnp.asarray(x_lr), W[seg[0]:seg[0] + C_LR])
+                   + jnp.dot(jnp.asarray(x_hr), W[seg[1]:seg[1] + C_HR]))
+            if kf is not None:
+                col = col + jnp.asarray(kf)[:, None] * W[z_row:z_row + 1]
+            col = col + jnp.reshape(bs[i], (1, -1))
+            o = m * fm.TERMS_MLP + off
+            want[:, o:o + n] = np.asarray(col)[:, :n]
+    got = fm.column_terms(torch.from_numpy(x_lr), torch.from_numpy(x_hr),
+                          None if kf is None else torch.from_numpy(kf), cw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,chunk", [(0, 32768), (1, 32768), (32768, 32768),
+                                     (32769, 32768), (100000, 32768),
+                                     (17, 4)])
+def test_chunk_plan_covers_every_column_once(n, chunk):
+    plan = fm.chunk_plan(n, chunk)
+    hits = np.zeros(n, np.int64)
+    for s, e in plan:
+        assert 0 <= s < e <= n and e - s <= chunk
+        hits[s:e] += 1
+    assert (hits == 1).all()
+    assert [s for s, _ in plan] == sorted(s for s, _ in plan)
+    assert fm.chunk_plan(n) == fm.chunk_plan(n, fm.CHUNK_COLS)
+
+
+def test_column_terms_need_the_packing(mlps):
+    _, fw = weights(mlps)
+    x_lr, x_hr = torch.zeros(2, C_LR), torch.zeros(2, C_HR)
+    with pytest.raises(ValueError, match="ColsWeights"):
+        fm.column_terms(x_lr, x_hr, None, fw)
+    cw = fm.ColsWeights(fw, (C_LR, C_HR))      # no packing
+    with pytest.raises(ValueError, match="ColsWeights"):
+        fm.column_terms(x_lr, x_hr, None, cw)
