@@ -10,13 +10,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
               sources (one nvcc per source, in parallel), with ptxas'
               registers, spills and warnings per kernel and, where the
               toolkit has cuobjdump, the HGMMA count of each kernel's
-              SASS; the bf16 K3/K4 kernels must not spill and their chain
-              kernels must hold HGMMA.
+              SASS; the bf16 K1/K3/K4 kernels must not spill, and their
+              chain kernels must hold HGMMA that ptxas did not serialize
+              (its C7511 report).
   2. k1:      kernel K1 (fused dual MLP) against its plain PyTorch version
               on the card, at the serving shapes (N = 50,000 and a ragged
-              49,999; the (256, 65) input split; full widths), in bf16 and
-              float32, with the kernel's and the plain version's times and
-              the card's bound for the same work.
+              49,999; in bf16 also 257, 129, 127 and 1, the ragged edges
+              of a 128-point tile; the (256, 65) input split; full
+              widths), in bf16 and float32, with the kernel's and the
+              plain version's times, TFLOP/s and the card's bound for the
+              same work.
   3. k2:      kernel K2 (the training variant, float32) against its plain
               version at the training shapes (N = B * num_sample_inout =
               12,000 and a ragged 11,999; a mask with zeros), with times
@@ -58,6 +61,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               service on the card against the same service on the CPU.
   9. stages:  one subject's time by stage (encode, evaluate, extract,
               write).
+ 9b. cli:     whether PIL imports here; then the CLI (surs_tpu_torch's
+              main(), ``--once``) serves one PNG image + mask pair at 128^3
+              on the card at full width with PIL hidden, so it decodes the
+              PNGs itself; K1's launch count zeroed just before and read
+              just after (> 0), both OBJ files non-empty.
  10. dense:   SuRSService(use_octree=False) serves one subject at 512^3
               through K3 (K3's and K1's launch counts zeroed just before
               and read just after: K3 > 0, K1 = 0), with its time by
@@ -79,7 +87,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               on the card equals the state it saved.
 
 ``--phases`` runs a subset (for debugging; the result line then says
-which ran). Then a ``{"kernels": [...]}`` line, the card's name and
+which ran). Two phases run only when named: ``train_profile`` (a
+torch.profiler breakdown of 3 fused steps) and ``serve_profile`` (one
+mono octree evaluation at 512^3 timed 4 times and profiled once: device
+time by kernel, device operations, K1's device time, busy share). Then a ``{"kernels": [...]}`` line, the card's name and
 power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is present.
@@ -112,6 +123,11 @@ TRAIN_STEPS = 6                  # 1 warm-up + 5 timed
 # float32: the same products summed in another order, ~1e-7 relative per
 # sum of ~1000 terms, on outputs in [0, 1].
 K1_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
+# point counts around the bf16 K1's 128-point tile and its two 64-row
+# warpgroups
+K1_RAGGED = (257, 129, 127, 1)
+# the CLI phase's grid
+CLI_RESOLUTION = 128
 # K2 against its plain version, float32 weights and inputs: as K1's
 # float32 case (the same products summed in another order)
 K2_TOL = 1e-5
@@ -189,15 +205,16 @@ def time_cuda(fn, reps: int, warm: int = 2) -> float:
     return float(np.median(times))
 
 
-KERNELS = ("fused_dual_mlp_bf16_kernel", "fused_dual_mlp_f32_kernel",
+KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_train_f32_kernel", "cols_terms_bf16_kernel",
            "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_cols_f32_kernel",
            "fused_dual_mlp_runs_wgmma_kernel", "fused_dual_mlp_runs_f32_kernel",
            "row_gather_vec_bf16_kernel", "row_gather_vec_f32_kernel",
            "row_gather_loop_bf16_kernel", "row_gather_loop_f32_kernel")
 SOURCES = ("fused_dual_mlp", "fused_cols_mlp", "row_gather")
-# the bf16 K3/K4 chain kernels, whose SASS must hold warpgroup MMAs
-WGMMA_KERNELS = ("fused_dual_mlp_cols_wgmma_kernel",
+# the bf16 K1/K3/K4 chain kernels, whose SASS must hold warpgroup MMAs
+WGMMA_KERNELS = ("fused_dual_mlp_wgmma_kernel",
+                 "fused_dual_mlp_cols_wgmma_kernel",
                  "fused_dual_mlp_runs_wgmma_kernel")
 
 
@@ -247,15 +264,20 @@ def phase_build():
     # a clean build from the checkout's sources, with its ptxas report
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     libs = cuda_build.build(SOURCES)
-    ptxas, warnings = {}, []
+    ptxas, warnings, serialized = {}, [], []
     for _, log in cuda_build.BUILD_LOG.values():
         ptxas.update(ptxas_report(log))
         warnings += [ln.strip() for ln in log.splitlines()
                      if "warning" in ln.lower()]
-    hgmma = sass_hgmma(libs["fused_cols_mlp"])
+        # ptxas' C7511: a kernel's wgmma waits for each other to finish
+        serialized += [k for ln in log.splitlines() if "C7511" in ln
+                       for k in KERNELS if k in ln]
+    hgmma = {**sass_hgmma(libs["fused_dual_mlp"]),
+             **sass_hgmma(libs["fused_cols_mlp"])}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": {k: v[0] for k, v in cuda_build.BUILD_LOG.items()},
           "ptxas": ptxas, "ptxas_warnings": warnings,
+          "wgmma_serialized": serialized,
           "sass_hgmma": hgmma or "no cuobjdump"})
     missing = [k for k in KERNELS if k not in ptxas]
     if missing:
@@ -263,9 +285,11 @@ def phase_build():
     spills = {k: v for k, v in ptxas.items()
               if v.get("spill_stores") or v.get("spill_loads")}
     if any(k in spills for k in WGMMA_KERNELS + ("cols_terms_bf16_kernel",)):
-        raise AssertionError(f"the bf16 K3/K4 kernels spill: {spills}")
+        raise AssertionError(f"the bf16 K1/K3/K4 kernels spill: {spills}")
+    if any(k in serialized for k in WGMMA_KERNELS):
+        raise AssertionError(f"ptxas serialized the wgmma of {serialized}")
     if hgmma and not all(hgmma.get(k) for k in WGMMA_KERNELS):
-        raise AssertionError(f"no HGMMA in the K3/K4 chain kernels: {hgmma}")
+        raise AssertionError(f"no HGMMA in a bf16 chain kernel: {hgmma}")
 
 
 def kernel_mlps():
@@ -295,10 +319,12 @@ def phase_k1():
     mlp_lr, mlp_hr = kernel_mlps()
     rng = np.random.default_rng(SEED)
     results = {}
+    counts = {"bfloat16": (N_MAIN, N_MAIN - 1) + K1_RAGGED,
+              "float32": (N_MAIN, N_MAIN - 1)}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
         fw = fm.prepare_fused_weights(mlp_lr, mlp_hr, dtype=dtype)
-        for n in (N_MAIN, N_MAIN - 1):
+        for n in counts[dtype_name]:
             x_lr = torch.from_numpy(rng.standard_normal(
                 (n, 256)).astype(np.float32)).cuda()
             xz = torch.from_numpy(rng.standard_normal(
@@ -880,6 +906,80 @@ def phase_stages(service, subjects, out_dir: str, phase: str = "stages"):
     return rec
 
 
+def write_png(path: str, img) -> None:
+    """[H, W] or [H, W, 3] uint8 -> an 8-bit gray or RGB PNG, every row
+    unfiltered (the standard library alone: PIL may be absent)."""
+    import struct
+    import zlib
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    ctype = 0 if img.ndim == 2 else 2
+    raw = b"".join(b"\0" + img[y].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def phase_cli(out_dir: str):
+    """The CLI's main() on the card: one PNG pair at CLI_RESOLUTION^3,
+    the reference model's full width; whether PIL is installed."""
+    import torch
+    from surs_tpu_torch.__main__ import main
+    from surs_tpu_torch.ops.fused_mlp import fused_dual_mlp
+
+    watch = os.path.join(out_dir, "cli_in")
+    os.makedirs(watch, exist_ok=True)
+    img, mask = synthetic_subject(0)
+    write_png(os.path.join(watch, "subject.png"), img)
+    write_png(os.path.join(watch, "subject_mask.png"), mask)
+    args = ["--watch_dir", watch, "--once", "--resolution",
+            str(CLI_RESOLUTION), "--b_min", "-0.5", "-0.5", "-0.5",
+            "--b_max", "0.5", "0.5", "0.5", "--seed", str(SEED),
+            "--results_path", out_dir, "--name", "cli"]
+    torch.cuda.synchronize()
+    # the CLI decodes the PNGs itself: PIL hidden, as on a machine
+    # without it
+    saved = sys.modules.get("PIL", False)
+    sys.modules["PIL"] = None
+    try:
+        fused_dual_mlp.launches = 0          # the CLI's path starts here
+        t0 = time.perf_counter()
+        main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = fused_dual_mlp.launches   # the CLI's path ends here
+    finally:
+        if saved is False:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = saved
+    objs = [os.path.join(out_dir, "cli", f"subject{s}")
+            for s in ("_HR.obj", "_LR.obj")]
+    sizes = [os.path.getsize(p) if os.path.isfile(p) else 0 for p in objs]
+    try:
+        import PIL  # noqa: F401  (only whether it imports)
+        pil = True
+    except ImportError:
+        pil = False
+    rec = {"phase": "cli", "pil_available": pil, "decoded_without_pil": True,
+           "resolution": CLI_RESOLUTION, "seconds": seconds,
+           "k1_launches": launches, "obj_bytes": sizes}
+    emit(rec)
+    for p in objs:
+        if os.path.isfile(p):
+            os.remove(p)
+    if launches <= 0 or not all(sizes):
+        raise AssertionError(f"cli failed: {rec}")
+    return rec
+
+
 def phase_dense(out_dir: str, subjects):
     """Dense serving through K3: one subject at 512^3, its stages, and K1
     held against the dense field at random grid points."""
@@ -1228,10 +1328,72 @@ def phase_train_profile(cfg, items, trained, steps: int = 3):
         raise AssertionError(f"the profile saw no device time: {rec}")
 
 
+def phase_serve_profile(subjects, repeats: int = 4):
+    """One subject's mono octree evaluation at 512^3, full width:
+    ``repeats`` timed runs (host clock to a synchronize), then one under
+    torch.profiler: device time by kernel, device operations, K1's share
+    and the device's busy share of the evaluation's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from surs_tpu_torch.ops.fused_mlp import fused_dual_mlp
+    from surs_tpu_torch.recon.pipeline import eval_calibration
+    from surs_tpu_torch.serve import SuRSService, normalize_image
+
+    service = SuRSService(full_width_config())
+    service.warmup((256, 256))
+    cfg = service.cfg
+    arr, sil = normalize_image(*subjects[1])
+    _, feats_lr, feat_hr = service.rec.encode(arr)
+
+    def evaluate():
+        stats = {}
+        service.rec.evaluate(
+            feats_lr, feat_hr, eval_calibration(1), cfg.resolution,
+            cfg.b_min, cfg.b_max, use_octree=True,
+            num_samples=cfg.num_samples, threshold=cfg.threshold,
+            init_resolution=cfg.octree_init_resolution, silhouette=sil,
+            stats=stats)
+        torch.cuda.synchronize()
+        return stats
+
+    times = []
+    for _ in range(repeats):
+        fused_dual_mlp.launches = 0
+        t0 = time.perf_counter()
+        stats = evaluate()
+        times.append(time.perf_counter() - t0)
+    launches = fused_dual_mlp.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluate()
+        wall = time.perf_counter() - t0
+    per, ops = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
+            per[ev.key] = ev.self_device_time_total / 1e3
+            ops += ev.count
+    busy = sum(per.values())
+    k1_ms = sum(v for k, v in per.items() if "fused_dual_mlp_wgmma" in k)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    rec = {"phase": "serve_profile", "mode": stats["mode"],
+           "queries": stats["queries"], "k1_launches": launches,
+           "evaluate_s": times, "profiled_wall_ms": wall * 1e3,
+           "device_ms": busy, "device_ops": ops, "k1_device_ms": k1_ms,
+           "device_busy_share_median_wall": busy / (np.median(times) * 1e3),
+           "top_device_ms": [[k[:80], v] for k, v in top]}
+    emit(rec)
+    del service
+    torch.cuda.empty_cache()
+    if busy <= 0 or k1_ms <= 0 or launches <= 0:
+        raise AssertionError(f"the serve profile saw no K1: {rec}")
+
+
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "serve", "check",
-          "stages", "dense", "runs", "train", "train_check")
+          "stages", "cli", "dense", "runs", "train", "train_check")
 # run only when named in --phases
-EXTRA_PHASES = ("train_profile",)
+EXTRA_PHASES = ("train_profile", "serve_profile")
 
 
 def main() -> int:
@@ -1265,6 +1427,10 @@ def main() -> int:
             del service
             clear_objs(out_dir)
             torch.cuda.empty_cache()
+        if "cli" in phases:
+            phase_cli(out_dir)
+        if "serve_profile" in phases:
+            phase_serve_profile(subjects)
         if "dense" in phases:
             dense = phase_dense(out_dir, subjects)
         if "runs" in phases:
@@ -1286,8 +1452,8 @@ def main() -> int:
         "source": "surs_tpu_torch/csrc/fused_dual_mlp.cu",
         "replaces": "surs_tpu/ops/fused_mlp.py:228",
         "launches": serve["k1_launches"],
-        "max_abs_err": max(k1[("bfloat16", N_MAIN)]["max_abs_err"],
-                           k1[("bfloat16", N_MAIN - 1)]["max_abs_err"]),
+        "max_abs_err": max(r["max_abs_err"] for (d, _), r in k1.items()
+                           if d == "bfloat16"),
         "ms": main_rec["ms"],
         "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"],

@@ -7,7 +7,10 @@
 ``<name>.{jpg,png}`` + optional ``<name>_mask.png`` pairs become
 ``<results_path>/<name>/<name>_HR.obj`` / ``_LR.obj``. ``--once``
 processes the current directory contents and exits. Runs on CUDA;
-``--device cpu`` runs on the CPU instead.
+``--device cpu`` runs on the CPU instead. Images are decoded with PIL
+where it is installed; without it only PNG files are read
+(``data/png.py``: 8-bit gray, gray + alpha, RGB, RGBA), and a ``.jpg``
+raises an error that names PIL.
 """
 
 from __future__ import annotations
@@ -15,13 +18,10 @@ from __future__ import annotations
 import os
 import time
 
-import numpy as np
-
 
 def main(argv=None):
-    from PIL import Image
-
     from .config import SuRSConfig, build_parser
+    from .data.png import load_gray, load_rgb
     from .serve import SuRSService
 
     parser = build_parser()
@@ -44,9 +44,8 @@ def main(argv=None):
             if os.path.isfile(p):
                 img_path = p
         mask_path = os.path.join(args.watch_dir, f"{name}_mask.png")
-        mask = (np.asarray(Image.open(mask_path).convert("L"))
-                if os.path.isfile(mask_path) else None)
-        return np.asarray(Image.open(img_path).convert("RGB")), mask
+        mask = load_gray(mask_path) if os.path.isfile(mask_path) else None
+        return load_rgb(img_path), mask
 
     while True:
         names = sorted(

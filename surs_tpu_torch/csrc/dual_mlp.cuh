@@ -1,7 +1,7 @@
 // Device code shared by the fused dual-MLP kernels (K1 and K2 in
 // fused_dual_mlp.cu, K3 and K4 in fused_cols_mlp.cu): the reference widths,
-// the packed weight layout, and one 64-row (bf16, wmma) or 32-row (float32,
-// FMA) hidden layer with activations in shared memory.
+// the packed weight layout, and the float32 FMA design: one 32-row hidden
+// layer with activations in shared memory.
 //
 // A layer's epilogue is a functor `epi(row, col, acc) -> pre-activation`:
 // K1 and K2 add the bias; K3 and K4 also add the per-column feature term,
@@ -11,13 +11,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <stddef.h>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 // Reference widths (ops/fused_mlp.py checks them before a launch).
@@ -41,18 +39,7 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void from_f32(float& d, float v) { d = v; }
-__device__ __forceinline__ void from_f32(bf16& d, float v) {
-  d = __float2bfloat16(v);
-}
-// v rounded to the compute dtype T, as float
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  T t;
-  from_f32(t, v);
-  return to_f32(t);
-}
 __device__ __forceinline__ float leaky(float v) {
   return v >= 0.f ? v : 0.01f * v;
 }
@@ -106,85 +93,6 @@ __device__ void final_layer(const T* P, int ldp, const T* X, int ldx,
       s += to_f32(X[p * ldx + k]) * to_f32(wx[k]);
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) pred[p] = 1.f / (1.f + expf(-(s + extra(p))));
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------- bf16 ---
-constexpr int BN16 = 64;
-constexpr int LDX16 = XK + 8;  // row pads keep wmma's smem rows off one bank
-constexpr int LDP16 = D0 + 8;
-
-// One hidden layer: out[BN16, N] = leaky(epi(h[:, :KH].Wh + X[:, :KX].Wx)).
-// Warp w owns output column tiles [w * TPW, (w + 1) * TPW), taken CT at a
-// time with a 4 x CT block of accumulators (all 64 rows). IN_PLACE layers
-// finish every read of `h` before the barrier and then overwrite it.
-template <int N, int KH, int KX, bool IN_PLACE, typename Epi>
-__device__ void layer_bf16(const bf16* h, const bf16* X,
-                           const bf16* __restrict__ wh,
-                           const bf16* __restrict__ wx, Epi epi, bf16* out,
-                           float* scratch) {
-  constexpr int TPW = N / 16 / WARPS;
-  constexpr int CT = TPW < 4 ? TPW : 4;
-  constexpr int PASSES = TPW / CT;
-  static_assert(TPW >= 1 && TPW % CT == 0, "bad layer width");
-  static_assert(!IN_PLACE || PASSES == 1, "in-place needs one pass");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int pass = 0; pass < PASSES; ++pass) {
-    const int col0 = (warp * TPW + pass * CT) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][CT];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) wmma::fill_fragment(acc[r][c], 0.f);
-
-#pragma unroll 1
-    for (int k = 0; k < KH; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        wmma::load_matrix_sync(a[r], h + r * 16 * LDP16 + k, LDP16);
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wh + (size_t)k * N + col0 + c * 16, N);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) wmma::mma_sync(acc[r][c], a[r], b, acc[r][c]);
-      }
-    }
-#pragma unroll 1
-    for (int k = 0; k < KX; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        wmma::load_matrix_sync(a[r], X + r * 16 * LDX16 + k, LDX16);
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wx + (size_t)k * N + col0 + c * 16, N);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) wmma::mma_sync(acc[r][c], a[r], b, acc[r][c]);
-      }
-    }
-    if (IN_PLACE) __syncthreads();
-
-    // epilogue through a per-warp 16x16 float tile: epi, leaky, round
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        wmma::store_matrix_sync(scratch, acc[r][c], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int cb = col0 + c * 16;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int idx = lane + 32 * e, row = idx >> 4, col = idx & 15;
-          out[(r * 16 + row) * LDP16 + cb + col] = __float2bfloat16(
-              leaky(epi(r * 16 + row, cb + col, scratch[idx])));
-        }
-        __syncwarp();
-      }
   }
   __syncthreads();
 }

@@ -59,8 +59,7 @@
 // (ops/cuda_build.py); the wrappers are ops/fused_mlp.py:fused_dual_mlp_cols
 // and fused_dual_mlp_runs (and column_terms, the pre-pass alone).
 
-#include "dual_mlp.cuh"
-#include "hopper.cuh"
+#include "wg_chain.cuh"
 
 namespace {
 
@@ -437,15 +436,6 @@ __global__ void __launch_bounds__(TTHREADS, 1)
 }
 
 // ==================================== bf16: the hidden chain on wgmma ===
-constexpr int MROWS = 128;                  // rows per tile
-constexpr int CONSUMERS = 256;              // two warpgroups, 64 rows each
-constexpr int WG_THREADS = CONSUMERS + 128; // + the producer warpgroup
-// registers a thread after the split (setmaxnreg): 2 x 128 x 240 +
-// 128 x 24 of the SM's 65,536
-constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
-constexpr int SK = 64, SN = 128;            // a stage: 64 k x 128 n
-constexpr int STAGE_ELEMS = SK * SN;        // 8,192 bf16, 16 KB
-constexpr int STAGE_BYTES = STAGE_ELEMS * 2;
 constexpr int SLOTS = 4;                    // ring depth
 // stages of one MLP in consumption order (ops/fused_mlp.py:hidden_stages)
 constexpr int L1_STAGES = (D0 / SK) * (D1 / SN);   // 64: 2 halves x 16 k x 2
@@ -455,7 +445,6 @@ constexpr int MLP_STAGES = L1_STAGES + L2_STAGES + L3_STAGES;  // 84
 constexpr int HVEC = D1 + D3;               // per MLP: b1 | w4h (float32)
 
 // shared memory, from a 1,024-byte aligned base
-constexpr int H1_BYTES = MROWS * D1 * 2;    // layer 1 out, [128, 512] bf16
 constexpr int RING_OFF = H1_BYTES;
 constexpr int CBUF_OFF = RING_OFF + SLOTS * STAGE_BYTES;
 template <int G> struct WgSmem {
@@ -480,39 +469,7 @@ struct WgArgs {
   float* out_lr;
 };
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ldg2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-// element (m, k) of h1: 8 k-chunks of 64 k, each [128 rows x 128 bytes]
-// with the 128-byte swizzle
-__device__ __forceinline__ int h1_index(int m, int k) {
-  return (k >> 6) * (MROWS * 64) + m * 64 +
-         ((((k >> 3) & 7) ^ (m & 7)) << 3) + (k & 7);
-}
-
-// consumer side of the ring: stage counter `head`, released up to `tail`
-struct Ring {
-  uint32_t slots, full, empty;   // shared addresses of slot 0 and barriers
-  uint32_t head, tail;
-  __device__ __forceinline__ int wait() {
-    const int slot = head % SLOTS;
-    mbar_wait(full + 8 * slot, (head / SLOTS) & 1);
-    ++head;
-    return slot;
-  }
-  __device__ __forceinline__ void release_to(uint32_t h) {
-    for (; tail < h; ++tail) mbar_arrive(empty + 8 * (tail % SLOTS));
-  }
-  __device__ __forceinline__ uint64_t desc_b(int slot, int j) const {
-    return wg_desc(slots + slot * STAGE_BYTES + j * 32, 1024);
-  }
-};
+using Ring = RingT<SLOTS>;
 
 // one thread's two rows of the tile (r0 and r0 + 8 of its warpgroup)
 struct Rows {
@@ -554,21 +511,6 @@ __device__ __forceinline__ void build_a0(uint32_t (&af)[4][4],
                          act<HR>(0.f, c0b.y, r.z0, wb.y, r.p0, pb.y));
     af[j][3] = pack_bf16(act<HR>(0.f, c1b.x, r.z1, wb.x, r.p1, pb.x),
                          act<HR>(0.f, c1b.y, r.z1, wb.y, r.p1, pb.y));
-  }
-}
-
-// Layer 1's epilogue for outputs [nb, nb + 128): h1 = bf16(leaky(acc + b1)).
-__device__ __forceinline__ void store_h1(const float (&acc)[64], bf16* h1,
-                                         int nb, const float* b1, int m0,
-                                         int tig) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int n = nb + 8 * i + 2 * tig;
-    const float2 b = ldg2(b1 + n);
-    *reinterpret_cast<uint32_t*>(h1 + h1_index(m0, n)) =
-        pack_bf16(leaky(acc[4 * i] + b.x), leaky(acc[4 * i + 1] + b.y));
-    *reinterpret_cast<uint32_t*>(h1 + h1_index(m0 + 8, n)) =
-        pack_bf16(leaky(acc[4 * i + 2] + b.x), leaky(acc[4 * i + 3] + b.y));
   }
 }
 

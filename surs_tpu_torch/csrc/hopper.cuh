@@ -1,8 +1,10 @@
-// Hopper (sm_90a) primitives for the column kernels (fused_cols_mlp.cu):
-// mbarriers, bulk copies from global to shared memory, cp.async, the
-// warpgroup MMA (wgmma) m64n128k16 bf16 -> float32 with A from registers
-// or from shared memory, its shared-memory descriptor, and mma.sync
-// m16n8k16. Inline PTX only: no tensor maps, no -lcuda.
+// Hopper (sm_90a) primitives for the bf16 chain kernels (K1 in
+// fused_dual_mlp.cu, K3/K4 in fused_cols_mlp.cu): mbarriers, bulk copies
+// from global to shared memory, cp.async, the warpgroup MMA (wgmma)
+// m64n128k16 bf16 -> float32 with A from registers or from shared memory
+// and m64n64k16 with both from shared memory, its shared-memory
+// descriptor, and mma.sync m16n8k16. Inline PTX only: no tensor maps, no
+// -lcuda.
 
 #pragma once
 
@@ -114,9 +116,10 @@ __device__ __forceinline__ void wg_wait() {
 }
 // keep the compiler from moving accumulator reads and writes across the
 // asynchronous MMAs and their waits
-__device__ __forceinline__ void wg_fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void wg_fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define SURS_WG_D64                                                        \
@@ -166,6 +169,30 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+#define SURS_WG_D32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], both K-major in shared memory;
+// the accumulator as wgmma_rs's, i < 8.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SURS_WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#undef SURS_WG_D32
 #undef SURS_WG_D64
 #undef SURS_WG_D64_OUT
 

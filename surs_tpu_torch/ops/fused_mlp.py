@@ -30,9 +30,11 @@ K1's packing.
 in the compute dtype, each layer split into the row block that
 multiplies the previous activation (``h``) and the row block that
 multiplies the input (``x``, zero-padded to ``XK`` rows), and the biases
-into one float32 buffer. The CUDA kernel (``csrc/fused_dual_mlp.cu``)
-and the plain version read the same buffers. The TPU layout (128-lane
-padding) is not carried over.
+into one float32 buffer. The plain versions, the float32 K1 and K2 read
+these buffers; in bf16 at the kernel's widths it also repacks them for
+the bf16 K1 (``K1Packed``: ring stages in ``k1_stages`` order, in the
+wgmma layout of ``stage_index``, and the float32 epilogue rows). The TPU
+layout (128-lane padding) is not carried over.
 
 ``fused_dual_mlp`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors. The plain version rounds where the
@@ -63,6 +65,15 @@ class MLPSpec(NamedTuple):
     res_layers: Tuple[int, ...]   # layers that re-read the input
 
 
+class K1Packed(NamedTuple):
+    """The bf16 K1's buffers (``prepare_fused_weights``), built from the
+    packing below: every weight it puts on the tensor cores in ring
+    stages, and the float32 rows its epilogues read."""
+    stages: torch.Tensor  # [2, K1_STAGES, 8192] compute dtype (k1_stages)
+    nbytes: torch.Tensor  # [K1_STAGES] int32: bytes of each stage
+    vec: torch.Tensor     # [2, K1_VEC] float32, per MLP at K1_VEC_OFF
+
+
 class FusedWeights(NamedTuple):
     w_lr: torch.Tensor    # packed weights, compute dtype
     b_lr: torch.Tensor    # packed biases, float32
@@ -71,6 +82,7 @@ class FusedWeights(NamedTuple):
     spec_lr: MLPSpec
     spec_hr: MLPSpec
     xk: int               # padded input width (dims_hr[0] rounded to 16)
+    packed: Optional[K1Packed] = None   # bf16 at the kernel's widths
 
 
 def _layout(spec: MLPSpec, xk: int):
@@ -141,10 +153,14 @@ def prepare_fused_weights(mlp_lr, mlp_hr, dtype=torch.float32
                           ) -> FusedWeights:
     """Pack the two SurfaceClassifiers (models/surface_classifier.py)
     for K1 and K2, on their device, detached from autograd. dims_hr[0]
-    must be dims_lr[0] + 1."""
-    return _pack_pair([p.detach() for p in mlp_params(mlp_lr)],
-                      [p.detach() for p in mlp_params(mlp_hr)],
-                      _specs(mlp_lr, mlp_hr), dtype)
+    must be dims_lr[0] + 1. In bf16 at the kernel's widths, also the
+    bf16 K1's repacking (``K1Packed``)."""
+    fw = _pack_pair([p.detach() for p in mlp_params(mlp_lr)],
+                    [p.detach() for p in mlp_params(mlp_hr)],
+                    _specs(mlp_lr, mlp_hr), dtype)
+    if dtype == torch.bfloat16 and _kernel_widths(fw):
+        fw = fw._replace(packed=_pack_k1(fw))
+    return fw
 
 
 # ------------------------------------------------------------------------
@@ -231,12 +247,19 @@ def fused_dual_mlp(x, fw: FusedWeights) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError("K1 takes one or two input parts")
     _check_kernel_inputs(parts, fw)
     x1 = parts[1] if len(parts) == 2 else None
-    fn = ("surs_fused_dual_mlp_bf16" if fw.w_lr.dtype == torch.bfloat16
-          else "surs_fused_dual_mlp_f32")
-    return _launch(fused_dual_mlp, "fused_dual_mlp", fn, fw, (N,), (
-        parts[0].data_ptr(), widths[0],
-        x1.data_ptr() if x1 is not None else None,
-        widths[1] if x1 is not None else 0, N))
+    inputs = (parts[0].data_ptr(), widths[0],
+              x1.data_ptr() if x1 is not None else None,
+              widths[1] if x1 is not None else 0, N)
+    if fw.w_lr.dtype == torch.float32:
+        return _launch(fused_dual_mlp, "fused_dual_mlp",
+                       "surs_fused_dual_mlp_f32", fw, (N,), inputs)
+    pk = fw.packed
+    if pk is None:
+        raise ValueError("the bf16 K1 takes prepare_fused_weights' "
+                         "packing at the kernel's widths")
+    return _launch(fused_dual_mlp, "fused_dual_mlp",
+                   "surs_fused_dual_mlp_bf16", fw, (N,), inputs,
+                   weights=(pk.stages, pk.nbytes, pk.vec))
 
 
 fused_dual_mlp.launches = 0
@@ -399,16 +422,46 @@ def hidden_stages() -> List[Tuple[int, int, int]]:
     return out
 
 
-def stage_index(device=None) -> torch.Tensor:
-    """[64, 128] int64: where element (k, n) of a stage's [64 k, 128 n]
-    block of W [in, out] sits among the stage's 8,192 elements. K-major
-    with the 128-byte swizzle, as the wgmma descriptor reads it: output
-    n is a row of 64 k (128 bytes), 8 rows make a 1,024-byte atom, and
-    16-byte chunk k // 8 of row n sits at chunk (k // 8) ^ (n % 8):
-    n * 64 + ((k // 8) ^ (n % 8)) * 8 + k % 8."""
-    k = torch.arange(STAGE_K, device=device)[:, None]
-    n = torch.arange(STAGE_N, device=device)[None, :]
-    return n * STAGE_K + ((k // 8) ^ (n % 8)) * 8 + k % 8
+def stage_index(device=None, kw: int = STAGE_K, nw: int = STAGE_N
+                ) -> torch.Tensor:
+    """[kw, nw] int64: where element (k, n) of a stage's [kw k, nw n]
+    block of W [in, out] sits among the stage's elements. K-major with
+    the 128-byte swizzle, as the wgmma descriptor reads it: each 64-k
+    chunk is nw rows (one per output n) of 64 k (128 bytes), 8 rows make
+    a 1,024-byte atom, and 16-byte piece (k % 64) // 8 of row n sits at
+    piece ((k % 64) // 8) ^ (n % 8): (k // 64) * nw * 64 + n * 64 +
+    (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8."""
+    k = torch.arange(kw, device=device)[:, None]
+    n = torch.arange(nw, device=device)[None, :]
+    return ((k // 64) * nw * 64 + n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8
+            + k % 8)
+
+
+def _pack_stages(blocks, plan, like: torch.Tensor) -> torch.Tensor:
+    """``plan`` [(block key, k0, n0, kw, nw)] -> [len(plan), 8192]: stage
+    s holds blocks[key][k0:k0 + kw, n0:n0 + nw] at stage_index(kw, nw),
+    zeros past its kw * nw elements."""
+    stages = like.new_zeros((len(plan), STAGE_K * STAGE_N))
+    for s, (key, k0, n0, kw, nw) in enumerate(plan):
+        idx = stage_index(like.device, kw, nw).reshape(-1)
+        stages[s, idx] = blocks[key][k0:k0 + kw, n0:n0 + nw].reshape(-1)
+    return stages
+
+
+def unpack_stages(stages: torch.Tensor, plan, shapes):
+    """Inverse of :func:`_pack_stages`: {key: [in, out]} blocks of
+    ``shapes`` from the stages; elements no stage covers stay NaN."""
+    blocks = {key: stages.new_full(shape, float("nan"))
+              for key, shape in shapes.items()}
+    for s, (key, k0, n0, kw, nw) in enumerate(plan):
+        idx = stage_index(stages.device, kw, nw)
+        blocks[key][k0:k0 + kw, n0:n0 + nw] = stages[s][idx]
+    return blocks
+
+
+def _hidden_plan():
+    return [(layer, k0, n0, STAGE_K, STAGE_N)
+            for layer, k0, n0 in hidden_stages()]
 
 
 def _hidden_blocks(w: torch.Tensor, spec: MLPSpec, xk: int):
@@ -422,24 +475,110 @@ def _hidden_blocks(w: torch.Tensor, spec: MLPSpec, xk: int):
 
 def _pack_hidden(w: torch.Tensor, spec: MLPSpec, xk: int) -> torch.Tensor:
     """One MLP's W1h, W2h, W3h as [84, 8192] ring stages."""
-    blocks = _hidden_blocks(w, spec, xk)
-    idx = stage_index(w.device).reshape(-1)
-    stages = w.new_empty((len(hidden_stages()), STAGE_K * STAGE_N))
-    for s, (layer, k0, n0) in enumerate(hidden_stages()):
-        stages[s, idx] = blocks[layer][k0:k0 + STAGE_K,
-                                       n0:n0 + STAGE_N].reshape(-1)
-    return stages
+    return _pack_stages(_hidden_blocks(w, spec, xk), _hidden_plan(), w)
 
 
 def unpack_hidden(stages: torch.Tensor):
     """Inverse of the stage packing: {1: W1h, 2: W2h, 3: W3h} [in, out]
     from one MLP's [84, 8192] stages."""
     d = KERNEL_DIMS_LR
-    blocks = {i: stages.new_empty((d[i], d[i + 1])) for i in (1, 2, 3)}
-    idx = stage_index(stages.device)
-    for s, (layer, k0, n0) in enumerate(hidden_stages()):
-        blocks[layer][k0:k0 + STAGE_K, n0:n0 + STAGE_N] = stages[s][idx]
-    return blocks
+    return unpack_stages(stages, _hidden_plan(),
+                         {i: (d[i], d[i + 1]) for i in (1, 2, 3)})
+
+
+# ---------------------------------------------------------- bf16 K1 -----
+# The bf16 K1 (csrc/fused_dual_mlp.cu) streams every weight it puts on
+# the tensor cores through one ring of 16 KB stages: the feature rows
+# (the first FEAT input columns) of W0x, W2x and W3x, and the hidden
+# blocks. The depth and coarse-prediction columns of the input (FEAT and
+# FEAT + 1) enter its epilogues as float32 rank-1 terms, from ``vec``.
+K1_BLOCKS = {"0x": (0, "x"), "1h": (1, "h"), "2h": (2, "h"), "2x": (2, "x"),
+             "3h": (3, "h"), "3x": (3, "x")}
+# per MLP, float32: offsets of the epilogue rows in ``K1Packed.vec``
+# (csrc/fused_dual_mlp.cu: V_*); z = depth row, p = prediction row of the
+# layer's x block; "tail" = [b4, w4 depth, w4 prediction, 0]
+K1_VEC_OFF = {"b0": 0, "z0": 1024, "p0": 2048, "b1": 3072, "b2": 3584,
+              "z2": 3840, "p2": 4096, "b3": 4352, "z3": 4480, "p3": 4608,
+              "w4h": 4736, "w4x": 4864, "tail": 5184}
+K1_VEC = 5188
+
+
+def k1_stages() -> List[Tuple[str, int, int, int, int]]:
+    """(block, k0, n0, kw, nw) of the bf16 K1's ring stages of one MLP,
+    in the order its consumers take them. Layers 0 and 1 in two halves
+    of 256 outputs; per 64-wide k-slice kc of layer 1, layer 0's slice
+    from a W0x slice ([320 k x 64 n]: stages of 128, 128 and 64 k), then
+    W1h's two [64 k x 128 n] stages of kc. Then layer 2 (W2h, 8 k-chunks
+    x 2; W2x, 5 x 2) and layer 3 (W3h, 4; W3x, 5)."""
+    d = KERNEL_DIMS_LR
+    out = []
+    for half in range(d[2] // 256):
+        for kc in range(d[1] // STAGE_K):
+            out += [("0x", k0, kc * STAGE_K, min(128, FEAT - k0), STAGE_K)
+                    for k0 in range(0, FEAT, 128)]
+            out += [("1h", kc * STAGE_K, half * 256 + q * STAGE_N, STAGE_K,
+                     STAGE_N) for q in range(256 // STAGE_N)]
+    for key, rows, n in (("2h", d[2], d[3]), ("2x", FEAT, d[3]),
+                         ("3h", d[3], d[4]), ("3x", FEAT, d[4])):
+        out += [(key, k0, n0, STAGE_K, STAGE_N)
+                for k0 in range(0, rows, STAGE_K)
+                for n0 in range(0, n, STAGE_N)]
+    return out
+
+
+K1_STAGES = 195
+
+
+def k1_blocks(w: torch.Tensor, spec: MLPSpec, xk: int):
+    """{key: [in, out]} of K1_BLOCKS: views of K1's packing, the x
+    blocks cut to their FEAT feature rows."""
+    layout = _layout(spec, xk)
+    out = {}
+    for key, (i, part) in K1_BLOCKS.items():
+        hb, xb, _, n = layout[i]
+        off, rows = hb if part == "h" else (xb[0], FEAT)
+        out[key] = w[off:off + rows * n].view(rows, n)
+    return out
+
+
+def _pack_k1_vec(w, b, spec: MLPSpec, xk: int) -> torch.Tensor:
+    layout = _layout(spec, xk)
+    v = torch.zeros(K1_VEC, dtype=torch.float32, device=w.device)
+    o = K1_VEC_OFF
+
+    def xrows(i):
+        _, xb, bo, n = layout[i]
+        return w[xb[0]:xb[0] + xk * n].view(xk, n).float(), b[bo:bo + n]
+
+    for i in (0, 2, 3):
+        wx, bias = xrows(i)
+        n = bias.shape[0]
+        v[o[f"b{i}"]:o[f"b{i}"] + n] = bias
+        v[o[f"z{i}"]:o[f"z{i}"] + n] = wx[FEAT]
+        v[o[f"p{i}"]:o[f"p{i}"] + n] = wx[FEAT + 1]
+    _, _, bo1, n1 = layout[1]
+    v[o["b1"]:o["b1"] + n1] = b[bo1:bo1 + n1]
+    h4 = layout[4][0]
+    v[o["w4h"]:o["w4h"] + h4[1]] = w[h4[0]:h4[0] + h4[1]].float()
+    wx, b4 = xrows(4)
+    v[o["w4x"]:o["w4x"] + FEAT] = wx[:FEAT, 0]
+    v[o["tail"]:o["tail"] + 3] = torch.stack([b4[0], wx[FEAT, 0],
+                                              wx[FEAT + 1, 0]])
+    return v
+
+
+def _pack_k1(fw: FusedWeights) -> K1Packed:
+    plan = k1_stages()
+    nbytes = torch.tensor([kw * nw * fw.w_lr.element_size()
+                           for _, _, _, kw, nw in plan], dtype=torch.int32,
+                          device=fw.w_lr.device)
+    mlps = ((fw.w_lr, fw.b_lr, fw.spec_lr), (fw.w_hr, fw.b_hr, fw.spec_hr))
+    return K1Packed(
+        torch.stack([_pack_stages(k1_blocks(w, spec, fw.xk), plan, w)
+                     for w, _, spec in mlps]).contiguous(),
+        nbytes,
+        torch.stack([_pack_k1_vec(w, b, spec, fw.xk)
+                     for w, b, spec in mlps]).contiguous())
 
 
 def _pack_terms(w, b, spec: MLPSpec, xk: int):
@@ -786,22 +925,23 @@ fused_dual_mlp_runs.launches = 0
 
 # ---------------------------------------------------------------- launch --
 def _launch(wrapper, lib_name: str, fn_name: str, fw: FusedWeights, shape,
-            inputs):
+            inputs, weights=None):
     """Launch ``fn_name`` of kernel library ``lib_name`` on the current
-    stream of the weights' device with ``inputs`` + weights + two float32
-    outputs of ``shape``; count the launch on ``wrapper``. Raises if it
-    fails."""
+    stream of the weights' device with ``inputs`` + weights (``weights``,
+    else fw's packed weights and biases) + two float32 outputs of
+    ``shape``; count the launch on ``wrapper``. Raises if it fails."""
     dev = fw.w_lr.device
     out_hr = torch.empty(shape, dtype=torch.float32, device=dev)
     out_lr = torch.empty(shape, dtype=torch.float32, device=dev)
     if out_hr.numel() == 0:
         return out_hr, out_lr
+    if weights is None:
+        weights = (fw.w_lr, fw.b_lr, fw.w_hr, fw.b_hr)
     lib = _kernel_lib(lib_name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, fn_name)(
-            *inputs, fw.w_lr.data_ptr(), fw.b_lr.data_ptr(),
-            fw.w_hr.data_ptr(), fw.b_hr.data_ptr(), out_hr.data_ptr(),
+            *inputs, *(t.data_ptr() for t in weights), out_hr.data_ptr(),
             out_lr.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{wrapper.__name__} launch failed: "
@@ -816,7 +956,7 @@ _W7 = [_P] * 7
 # each library's entry points and their argument types
 _SIGNATURES = {
     "fused_dual_mlp": {
-        "surs_fused_dual_mlp_bf16": [_P, _I, _P, _I, _I] + _W7,
+        "surs_fused_dual_mlp_bf16": [_P, _I, _P, _I, _I] + [_P] * 6,
         "surs_fused_dual_mlp_f32": [_P, _I, _P, _I, _I] + _W7,
         "surs_fused_dual_mlp_train_f32": [_P, _P, _P, _I, _I] + _W7,
     },

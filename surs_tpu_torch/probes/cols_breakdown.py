@@ -62,23 +62,30 @@ ABLATIONS = {
 }
 
 
-def build_variants(names):
-    """{variant: loaded library}, one nvcc per variant, all together."""
-    root = cuda_build.BUILD_DIR / "breakdown"
+def build_variants(source: str, ablations, names, subdir: str):
+    """{variant: loaded library} of ``csrc/<source>`` with each named
+    ablation's replacements (``ablations[name]``: (file, text,
+    replacement), each text found once), into
+    ``csrc/_build/<subdir>/<variant>/``; one nvcc per variant, all
+    together."""
+    root = cuda_build.BUILD_DIR / subdir
     shutil.rmtree(root, ignore_errors=True)
-    procs = {}
-    for name in names:
+    files = [source] + [h.name for h in cuda_build.CSRC.glob("*.cuh")]
+    for name in names:          # every ablation applies before any build
         d = root / name
         d.mkdir(parents=True)
-        for f in ("fused_cols_mlp.cu", "dual_mlp.cuh", "hopper.cuh"):
+        for f in files:
             (d / f).write_text((cuda_build.CSRC / f).read_text())
-        for f, old, new in ABLATIONS[name]:
+        for f, old, new in ablations[name]:
             text = (d / f).read_text()
             if text.count(old) != 1:
                 raise RuntimeError(f"ablation {name}: text not found in {f}")
             (d / f).write_text(text.replace(old, new))
+    procs = {}
+    for name in names:
+        d = root / name
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-               str(d / "lib.so"), str(d / "fused_cols_mlp.cu")]
+               str(d / "lib.so"), str(d / source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)
     libs = {}
@@ -86,12 +93,16 @@ def build_variants(names):
         _, err = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
-        lib = ctypes.CDLL(str(root / name / "lib.so"))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.surs_fused_dual_mlp_cols_wgmma.argtypes = [P, P, I, I] + [P] * 6
-        lib.surs_fused_dual_mlp_runs_wgmma.argtypes = [P, P, I] + [P] * 6
-        libs[name] = lib
+        libs[name] = ctypes.CDLL(str(root / name / "lib.so"))
     return libs
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip()
 
 
 def main() -> None:
@@ -104,7 +115,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("cols_breakdown needs a CUDA card")
     t0 = time.perf_counter()
-    libs = build_variants(list(ABLATIONS))
+    libs = build_variants("fused_cols_mlp.cu", ABLATIONS, list(ABLATIONS),
+                          "breakdown")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.surs_fused_dual_mlp_cols_wgmma.argtypes = [P, P, I, I] + [P] * 6
+        lib.surs_fused_dual_mlp_runs_wgmma.argtypes = [P, P, I] + [P] * 6
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
     gen = torch.Generator().manual_seed(3)
     mlps = [SurfaceClassifier(d) for d in (fm.KERNEL_DIMS_LR,
@@ -147,10 +163,7 @@ def main() -> None:
             out[1].data_ptr(), stream), 20)
         print(json.dumps({"variant": name, "k3_chain_ms_per_chunk": k3,
                           "k4_chain_ms_per_chunk": k4}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    print(card_line(), flush=True)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ from surs_tpu.ops.fused_mlp import fused_dual_mlp_xla as j_fused_dual_mlp_xla
 from surs_tpu.ops.fused_mlp import prepare_fused_weights as j_prepare
 from surs_tpu_torch.compat.flax_import import load_flax_params
 from surs_tpu_torch.models.surface_classifier import SurfaceClassifier
+from surs_tpu_torch.ops import fused_mlp as fm
 from surs_tpu_torch.ops.fused_mlp import (fused_dual_mlp, fused_dual_mlp_ref,
                                           prepare_fused_weights)
 
@@ -139,3 +140,146 @@ def test_cpu_tensors_take_the_plain_version(mlps):
     before = fused_dual_mlp.launches
     fused_dual_mlp(torch.zeros(8, 321), prepare_fused_weights(t_lr, t_hr))
     assert fused_dual_mlp.launches == before
+
+
+# ------------------------------------------ the bf16 K1's ring stages ---
+def _k1_shapes():
+    d = DIMS_LR
+    return {"0x": (320, d[1]), "1h": (d[1], d[2]), "2h": (d[2], d[3]),
+            "2x": (320, d[3]), "3h": (d[3], d[4]), "3x": (320, d[4])}
+
+
+def test_k1_packing_only_for_bf16_at_kernel_widths(mlps):
+    _, _, t_lr, t_hr = mlps
+    assert prepare_fused_weights(t_lr, t_hr).packed is None
+    pk = prepare_fused_weights(t_lr, t_hr, dtype=torch.bfloat16).packed
+    assert tuple(pk.stages.shape) == (2, fm.K1_STAGES, 8192)
+    assert pk.stages.dtype == torch.bfloat16
+    assert pk.nbytes.dtype == torch.int32 and pk.vec.dtype == torch.float32
+    assert tuple(pk.vec.shape) == (2, fm.K1_VEC)
+
+
+@pytest.mark.parametrize("mlp", [0, 1])
+def test_k1_stages_hold_every_weight_once(mlps, mlp):
+    """The stages, read back through the documented index map, are K1's
+    blocks exactly (the x blocks' 320 feature rows, the hidden blocks):
+    every element once, W0x's twice (layer 0 is built once per half of
+    layer 1); each stage's map is a permutation of its kw * nw first
+    elements, the rest zero, and nbytes says how many bytes the producer
+    copies."""
+    _, _, t_lr, t_hr = mlps
+    fw = prepare_fused_weights(t_lr, t_hr, dtype=torch.bfloat16)
+    w, spec = ((fw.w_lr, fw.spec_lr), (fw.w_hr, fw.spec_hr))[mlp]
+    plan = fm.k1_stages()
+    assert len(plan) == fm.K1_STAGES
+    stages = fw.packed.stages[mlp]
+    got = fm.unpack_stages(stages, plan, _k1_shapes())
+    want = fm.k1_blocks(w, spec, fw.xk)
+    seen = {k: torch.zeros(s, dtype=torch.int32)
+            for k, s in _k1_shapes().items()}
+    for s, (key, k0, n0, kw, nw) in enumerate(plan):
+        idx = fm.stage_index(None, kw, nw).reshape(-1)
+        assert torch.equal(idx.sort().values, torch.arange(kw * nw))
+        assert not stages[s, kw * nw:].any()
+        assert int(fw.packed.nbytes[s]) == kw * nw * 2
+        seen[key][k0:k0 + kw, n0:n0 + nw] += 1
+    for key in want:
+        assert bool((seen[key] == (2 if key == "0x" else 1)).all()), key
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_k1_vec_holds_the_epilogue_rows(mlps):
+    """vec: each input-reading layer's bias, depth row (x row 320) and
+    prediction row (x row 321, zero padding in the coarse MLP); b1; w4h;
+    w4x's feature rows; then b4 and w4x's depth and prediction rows."""
+    _, _, t_lr, t_hr = mlps
+    fw = prepare_fused_weights(t_lr, t_hr, dtype=torch.bfloat16)
+    o = fm.K1_VEC_OFF
+    for m, (w, b, spec) in enumerate(((fw.w_lr, fw.b_lr, fw.spec_lr),
+                                      (fw.w_hr, fw.b_hr, fw.spec_hr))):
+        v = fw.packed.vec[m]
+        layout = fm._layout(spec, fw.xk)
+        for i in (0, 2, 3, 4):
+            _, xb, bo, n = layout[i]
+            wx = w[xb[0]:xb[0] + fw.xk * n].view(fw.xk, n).float()
+            if i < 4:
+                assert torch.equal(v[o[f"b{i}"]:o[f"b{i}"] + n], b[bo:bo + n])
+                assert torch.equal(v[o[f"z{i}"]:o[f"z{i}"] + n], wx[320])
+                assert torch.equal(v[o[f"p{i}"]:o[f"p{i}"] + n], wx[321])
+            else:
+                assert torch.equal(v[o["w4x"]:o["w4x"] + 320], wx[:320, 0])
+                assert torch.equal(v[o["tail"]:o["tail"] + 4], torch.stack(
+                    [b[bo], wx[320, 0], wx[321, 0], torch.tensor(0.)]))
+        assert torch.equal(v[o["b1"]:o["b1"] + 512], b[1024:1536])
+        h4 = layout[4][0]
+        assert torch.equal(v[o["w4h"]:o["w4h"] + 128],
+                           w[h4[0]:h4[0] + 128].float())
+    assert not fw.packed.vec[0, o["p0"]:o["p0"] + 1024].any()
+
+
+def _leaky(v):
+    return torch.where(v >= 0, v, 0.01 * v)
+
+
+def k1_staged_ref(x, pk):
+    """K1 from the bf16 kernel's buffers alone, in its order: layer 0 by
+    64-wide slices, once per 256-wide half of layer 1; the feature
+    products apart from the depth and prediction columns' rank-1 terms.
+    x [N, 321] float32 -> (pred_hr, pred_lr)."""
+    bf = torch.bfloat16
+    xr = x.to(bf).float()
+    X, z = xr[:, :320], xr[:, 320:321]
+    o = fm.K1_VEC_OFF
+
+    def mlp(m, p):
+        W = {k: t.float() for k, t in fm.unpack_stages(
+            pk.stages[m], fm.k1_stages(), _k1_shapes()).items()}
+        v = pk.vec[m]
+
+        def terms(i, n):
+            return (v[o[f"b{i}"]:o[f"b{i}"] + n] + z * v[o[f"z{i}"]:
+                    o[f"z{i}"] + n] + p * v[o[f"p{i}"]:o[f"p{i}"] + n])
+
+        t0 = terms(0, 1024)
+        h1 = []
+        for half in range(2):
+            acc = torch.zeros(x.shape[0], 256)
+            for kc in range(16):
+                ks = slice(64 * kc, 64 * kc + 64)
+                a0 = _leaky(X @ W["0x"][:, ks] + t0[:, ks]).to(bf).float()
+                acc = acc + a0 @ W["1h"][ks, 256 * half:256 * half + 256]
+            b1 = v[o["b1"] + 256 * half:o["b1"] + 256 * half + 256]
+            h1.append(_leaky(acc + b1).to(bf).float())
+        h1 = torch.cat(h1, 1)
+        h2 = _leaky(h1 @ W["2h"] + X @ W["2x"] + terms(2, 256)).to(bf).float()
+        h3 = _leaky(h2 @ W["3h"] + X @ W["3x"] + terms(3, 128)).to(bf).float()
+        tail = v[o["tail"]:o["tail"] + 3]
+        logit = (h3 @ v[o["w4h"]:o["w4h"] + 128]
+                 + X @ v[o["w4x"]:o["w4x"] + 320]
+                 + tail[0] + z[:, 0] * tail[1] + p[:, 0] * tail[2])
+        return torch.sigmoid(logit)
+
+    lr = mlp(0, torch.zeros_like(z))
+    hr = mlp(1, lr[:, None].to(bf).float())
+    return hr, lr
+
+
+@pytest.mark.parametrize("n", [1, 129, 300])
+def test_k1_kernel_order_matches_pallas(mlps, n):
+    """The bf16 K1's arithmetic from its stages and epilogue rows alone
+    (k1_staged_ref) against the Pallas kernel in interpret mode on bf16
+    weights: both round the input, every activation and pred_lr to bf16
+    and sum in float32, in other orders, which can flip an activation's
+    bf16 rounding now and then; 5e-3 absolute, the card's K1 tolerance."""
+    p_lr, p_hr, t_lr, t_hr = mlps
+    x = _inputs(n, seed=5)
+    jfw = j_prepare(p_lr, p_hr, DIMS_LR, DIMS_HR, dtype=jnp.bfloat16,
+                    base_split=(256, 65))
+    want = j_fused_dual_mlp([jnp.asarray(x[:, :256]), jnp.asarray(x[:, 256:])],
+                            jfw, block_n=256, interpret=True)
+    fw = prepare_fused_weights(t_lr, t_hr, dtype=torch.bfloat16)
+    got = k1_staged_ref(torch.from_numpy(x), fw.packed)
+    for g, w in zip(got, want):
+        assert g.shape == (n,)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=5e-3)

@@ -64,6 +64,56 @@ def test_obj_writer_is_byte_identical(tmp_path):
     assert a.startswith(b"v ") and b"\nf " in a
 
 
+def native_fixed4(v: float) -> str:
+    """csrc/mesh_native.cpp:fmt_fixed4 in Python: the sign from v < 0,
+    then |v| * 1e4 + 0.5 truncated, in the same double arithmetic."""
+    scaled = int(abs(v) * 10000.0 + 0.5)
+    return f"{'-' if v < 0 else ''}{scaled // 10000}.{scaled % 10000:04d}"
+
+
+def native_obj_bytes(verts, faces) -> bytes:
+    lines = ["v " + " ".join(native_fixed4(float(c)) for c in v)
+             for v in np.asarray(verts, dtype=np.float64)]
+    lines += ["f %d %d %d" % (f[0] + 1, f[2] + 1, f[1] + 1) for f in faces]
+    return ("\n".join(lines) + "\n").encode()
+
+
+def test_obj_writer_rounds_ties_as_the_native_writer(tmp_path):
+    """A plateau field (values 0 / 0.5 / 1) puts vertices on grid points
+    and midpoints; mapped as a 512^3 grid over the +-0.5 box, many lie
+    exactly halfway between two 4-decimal values (g / 512 - 0.5 for
+    g = 16 mod 32). The port's file equals the JAX package's default
+    writer byte for byte: its native writer where the library is built,
+    else that writer's formula."""
+    from surs_tpu.recon import native
+    vol = VOLUMES["flat_plateaus"]()
+    verts, faces = marching_cubes_classic(vol, 0.5)
+    verts = verts.astype(np.float64) * 16 / 512 - 0.5
+    scaled = np.abs(verts) * 1e4
+    assert (scaled - np.floor(scaled) == 0.5).any()      # ties present
+    save_obj_mesh(str(tmp_path / "port.obj"), verts, faces)
+    got = (tmp_path / "port.obj").read_bytes()
+    if native.available():
+        native.write_obj(str(tmp_path / "jax.obj"), verts, faces)
+        want = (tmp_path / "jax.obj").read_bytes()
+    else:
+        want = native_obj_bytes(verts, faces)
+    assert got == want
+
+
+def test_obj_writer_tie_list(tmp_path):
+    """Hand-made ties and signs against the native writer's formula."""
+    vals = [-0.40625, 0.40625, 0.00005, -0.00005, -0.00001, -0.0, 0.0,
+            0.03125, -0.5, 1.99995, -123.45675, 2.5e-5]
+    verts = np.array(vals, dtype=np.float64).reshape(-1, 3)
+    p = tmp_path / "ties.obj"
+    save_obj_mesh(str(p), verts, np.zeros((0, 3), np.int64))
+    assert p.read_bytes() == native_obj_bytes(verts, [])
+    text = p.read_text().split()
+    assert text[1] == "-0.4063" and text[3] == "0.0001"
+    assert text[6] == "-0.0000" and text[7] == "0.0000"
+
+
 def test_obj_writer_winding(tmp_path):
     p = tmp_path / "tri.obj"
     save_obj_mesh(str(p), np.array([[0.0, 0, 0], [1, 0, 0], [0, 1, 0]]),
