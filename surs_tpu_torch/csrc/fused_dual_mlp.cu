@@ -45,12 +45,8 @@
 // float32 keeps the first design (a check path only): one block per
 // 32-point tile runs the whole chain with FMA loops (dual_mlp.cuh).
 //
-// Kernel K2, the training variant (coarse and fine MLP on two point
-// sets), is at the end of the file and reuses the float32 device code.
-//
 // Built with nvcc into a shared library with a plain C interface
-// (ops/cuda_build.py); the wrappers are ops/fused_mlp.py:fused_dual_mlp
-// and fused_dual_mlp_train.
+// (ops/cuda_build.py); the wrapper is ops/fused_mlp.py:fused_dual_mlp.
 
 #include "wg_chain.cuh"
 
@@ -585,51 +581,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (t < BN32 && base + t < n) out_hr[base + t] = pred[t];
 }
 
-// ------------------------------------------------------- K2, float32 ---
-// Kernel K2: the training variant. Replaces the Pallas kernel
-// `fused_dual_mlp_train` (body `_kernel_train`) of
-// surs_tpu/ops/fused_mlp.py. The coarse MLP runs on xa (the HR sample
-// points), the fine MLP on [xb, mask_a * pred_lr] (the LR sample points,
-// conditioned on the masked coarse prediction); both outputs unmasked.
-// Training keeps float32 weights, so only the float32 instantiation
-// exists. Same work per point as K1 (about 4.57 MFLOP against 2.6 KB of
-// input): bound by operations. It reuses K1's device code and shared
-// memory: once the coarse chain is done, xb is restaged into the same X
-// tile, which is possible because the residual layers of each MLP read
-// only that MLP's own input.
-__global__ void __launch_bounds__(THREADS, 1)
-    fused_dual_mlp_train_f32_kernel(const float* __restrict__ xa,
-                                    const float* __restrict__ xb,
-                                    const float* __restrict__ mask_a,
-                                    int w, int n,
-                                    const float* __restrict__ wlr,
-                                    const float* __restrict__ blr,
-                                    const float* __restrict__ whr,
-                                    const float* __restrict__ bhr,
-                                    float* __restrict__ out_hr,
-                                    float* __restrict__ out_lr) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* X = reinterpret_cast<float*>(smem);
-  float* P = X + BN32 * LDX32;
-  float* pred = P + BN32 * LDP32;
-  const int base = blockIdx.x * BN32;
-  const int t = threadIdx.x;
-
-  stage_input<float, BN32>(X, LDX32, xa, w, nullptr, 0, n, base);
-  __syncthreads();
-  mlp_f32(P, X, wlr, blr, pred);  // ends in a barrier: X is free again
-  if (t < BN32 && base + t < n) out_lr[base + t] = pred[t];
-  stage_input<float, BN32>(X, LDX32, xb, w, nullptr, 0, n, base);
-  __syncthreads();
-  if (t < BN32) {
-    // the fine MLP reads the masked coarse prediction as input column w
-    X[t * LDX32 + w] = base + t < n ? pred[t] * mask_a[base + t] : 0.f;
-  }
-  __syncthreads();
-  mlp_f32(P, X, whr, bhr, pred);
-  if (t < BN32 && base + t < n) out_hr[base + t] = pred[t];
-}
-
 }  // namespace
 
 extern "C" {
@@ -676,27 +627,6 @@ int surs_fused_dual_mlp_f32(const void* x0, int w0, const void* x1, int w1,
       (const float*)x0, w0, (const float*)x1, w1, n, (const float*)wlr,
       (const float*)blr, (const float*)whr, (const float*)bhr,
       (float*)out_hr, (float*)out_lr);
-  return (int)cudaGetLastError();
-}
-
-// Launch K2 on `stream`; returns cudaGetLastError() (0 on success).
-// xa, xb [n, w] float32 with w == 321, mask_a [n] float32; float32
-// packed weights and biases; out_* [n] float32.
-int surs_fused_dual_mlp_train_f32(const void* xa, const void* xb,
-                                  const void* mask_a, int w, int n,
-                                  const void* wlr, const void* blr,
-                                  const void* whr, const void* bhr,
-                                  void* out_hr, void* out_lr, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_dual_mlp_train_f32_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM32);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (n + BN32 - 1) / BN32;
-  fused_dual_mlp_train_f32_kernel<<<blocks, THREADS, SMEM32,
-                                    (cudaStream_t)stream>>>(
-      (const float*)xa, (const float*)xb, (const float*)mask_a, w, n,
-      (const float*)wlr, (const float*)blr, (const float*)whr,
-      (const float*)bhr, (float*)out_hr, (float*)out_lr);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives for the bf16 chain kernels (K1 in
-// fused_dual_mlp.cu, K3/K4 in fused_cols_mlp.cu): mbarriers, bulk copies
-// from global to shared memory, cp.async, the warpgroup MMA (wgmma)
-// m64n128k16 bf16 -> float32 with A from registers or from shared memory
-// and m64n64k16 with both from shared memory, its shared-memory
+// fused_dual_mlp.cu, K3/K4 in fused_cols_mlp.cu) and K2's TF32 GEMM
+// (fused_train_tf32.cu): mbarriers, bulk copies from global to shared
+// memory, cp.async, the warpgroup MMA (wgmma) m64n128k16 bf16 -> float32
+// with A from registers or from shared memory, m64n128k8 tf32 and
+// m64n64k16 bf16 with both from shared memory, its shared-memory
 // descriptor, and mma.sync m16n8k16. Inline PTX only: no tensor maps, no
 // -lcuda.
 
@@ -165,6 +166,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SURS_WG_D64
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SURS_WG_D64_OUT
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 8] . B[8 x 128] in TF32 (the low 13 bits of each
+// float32 operand ignored), both K-major in shared memory with the 128-byte
+// swizzle: a row is 32 values, a k8 step advances 32 bytes as bf16's k16.
+// TF32 takes no transpose immediates. The accumulator as wgmma_rs's.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SURS_WG_D64
+      ", %64, %65, p, 1, 1;\n}\n"
       : SURS_WG_D64_OUT
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }

@@ -9,7 +9,12 @@ leaky-ReLU 0.01, sigmoid) gives pred_lr; the fine MLP runs on
 
 K2 is the counterpart of ``fused_dual_mlp_train`` (Pallas body
 ``_kernel_train``): the coarse MLP runs on ``xa``, the fine MLP on
-[xb, mask_a * pred_lr]; both outputs unmasked. Its autograd op
+[xb, mask_a * pred_lr]; both outputs unmasked. Its CUDA source is
+``csrc/fused_train_tf32.cu``: float32-accurate 3xTF32 on the tensor cores,
+one GEMM kernel launch per layer on operands split into TF32 hi and lo
+parts (``tf32_split``) and tiled (``split_tiles``), and a float32 head;
+``pack_k2`` packs the weights per call, ``fused_dual_mlp_train_tf32x3_ref``
+composes the plain versions of its kernels. Its autograd op
 (``make_fused_dual_mlp_train_ad``) launches K2 forward and, like the JAX
 custom_vjp, differentiates a recompute of the plain version backward.
 
@@ -30,7 +35,7 @@ K1's packing.
 in the compute dtype, each layer split into the row block that
 multiplies the previous activation (``h``) and the row block that
 multiplies the input (``x``, zero-padded to ``XK`` rows), and the biases
-into one float32 buffer. The plain versions, the float32 K1 and K2 read
+into one float32 buffer. The plain versions and the float32 K1 read
 these buffers; in bf16 at the kernel's widths it also repacks them for
 the bf16 K1 (``K1Packed``: ring stages in ``k1_stages`` order, in the
 wgmma layout of ``stage_index``, and the float32 epilogue rows). The TPU
@@ -46,6 +51,7 @@ sigmoid are float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -287,13 +293,168 @@ def fused_dual_mlp_train_ref(xa: torch.Tensor, xb: torch.Tensor,
     return pred_hr, pred_lr
 
 
+# K2's CUDA kernels (csrc/fused_train_tf32.cu) take every operand split
+# into TF32 hi and lo parts and tiled: tiles of [128 rows x 32 k] ordered
+# [rows / 128][k / 32], each 128-byte row holding its 16-byte chunk c at
+# chunk c ^ (row % 8) (the 128-byte swizzle wgmma reads, K-major).
+K2_XK = 352                     # the input padded to a multiple of 32
+# (N, K) of the packed W_i [out, in], layers 0-3: K = h width + K2_XK
+# for the layers that read the input
+K2_LAYERS = ((1024, K2_XK), (512, 1024), (256, 512 + K2_XK),
+             (128, 256 + K2_XK))
+K2_WBUF = sum(2 * n * k for n, k in K2_LAYERS)
+# per MLP, float32 (csrc/fused_train_tf32.cu: V_*): b0..b3, then the
+# last layer's row [w4h (128) | w4x (K2_XK)], then [b4, 0, 0, 0]
+K2_VEC_OFF = {"b0": 0, "b1": 1024, "b2": 1536, "b3": 1792, "w4h": 1920,
+              "w4x": 2048, "b4": 2400}
+K2_VEC = 2404
+
+
+class K2Packed(NamedTuple):
+    """K2's weights: per MLP (lr, hr), layers 0-3 each as its hi tiles
+    then its lo tiles (``split_tiles`` of W_i [N, K], ``K2_LAYERS``), and
+    the float32 vector at ``K2_VEC_OFF``."""
+    w: torch.Tensor     # [2, K2_WBUF] float32
+    vec: torch.Tensor   # [2, K2_VEC] float32
+
+
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 v -> (hi, lo): hi = tf32_rna(v), lo = tf32_rna(v - hi), with
+    tf32_rna(v) = (bits(v) + 0x1000) & 0xFFFFE000, the round to nearest,
+    ties away from zero, of ``cvt.rna.tf32.f32`` for a finite v; bit for
+    bit what K2's kernels compute. |v - hi - lo| <= 2^-22 |v|."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(v.float())
+    return hi, rna(v.float() - hi)
+
+
+@functools.lru_cache(maxsize=16)
+def tile_index(rows: int, cols: int, device=None) -> torch.Tensor:
+    """[rows * cols] int64: element p of the tile layout of a [rows, cols]
+    operand (rows % 128 == 0, cols % 32 == 0) is element idx[p] of its
+    row-major storage."""
+    m = torch.arange(rows, device=device).view(rows // 128, 1, 128, 1, 1)
+    kc = torch.arange(cols // 32, device=device).view(1, -1, 1, 1, 1)
+    c = torch.arange(8, device=device).view(1, 1, 1, 8, 1)
+    e = torch.arange(4, device=device).view(1, 1, 1, 1, 4)
+    return (m * cols + kc * 32 + (c ^ (m % 8)) * 4 + e).reshape(-1)
+
+
+def split_tiles(v: torch.Tensor) -> torch.Tensor:
+    """[rows, cols] -> [2, rows * cols]: ``tf32_split`` of v, hi and lo
+    each in the tile layout."""
+    hi, lo = tf32_split(v)
+    idx = tile_index(*v.shape, v.device)
+    return torch.stack([hi.reshape(-1)[idx], lo.reshape(-1)[idx]])
+
+
+def unsplit_tiles(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Inverse of the tiling of :func:`split_tiles`: [2, rows * cols] ->
+    [2, rows, cols] (hi, lo)."""
+    out = torch.empty_like(t)
+    out[:, tile_index(rows, cols, t.device)] = t
+    return out.view(2, rows, cols)
+
+
+def _k2_mats(w: torch.Tensor, b: torch.Tensor, spec: MLPSpec, xk: int):
+    """One MLP of K1's packing as K2 takes it: per layer (W [out, h width
+    + K2_XK] float32, nn.Linear's layout with the input block zero-padded
+    to K2_XK, bias)."""
+    mats = []
+    for hb, xb, bo, n in _layout(spec, xk):
+        blocks = []
+        if hb is not None:
+            blocks.append(w[hb[0]:hb[0] + hb[1] * n].view(hb[1], n))
+        if xb is not None:
+            blocks += [w[xb[0]:xb[0] + xk * n].view(xk, n),
+                       w.new_zeros((K2_XK - xk, n))]
+        mats.append((torch.cat(blocks).t().float(), b[bo:bo + n]))
+    return mats
+
+
+def _pack_k2_mlp(mats) -> Tuple[torch.Tensor, torch.Tensor]:
+    w4, b4 = mats[4]
+    return (torch.cat([split_tiles(wt).reshape(-1) for wt, _ in mats[:4]]),
+            torch.cat([b for _, b in mats[:4]] + [w4[0], b4,
+                                                  b4.new_zeros(3)]))
+
+
+def pack_k2(fw: FusedWeights) -> K2Packed:
+    """K2's weights from float32 FusedWeights at the kernel's widths."""
+    lr = _pack_k2_mlp(_k2_mats(fw.w_lr, fw.b_lr, fw.spec_lr, fw.xk))
+    hr = _pack_k2_mlp(_k2_mats(fw.w_hr, fw.b_hr, fw.spec_hr, fw.xk))
+    return K2Packed(torch.stack([lr[0], hr[0]]),
+                    torch.stack([lr[1], hr[1]]))
+
+
+def tf32x3_linear_ref(a_hi, a_lo, w_hi, w_lo, b) -> torch.Tensor:
+    """Plain version of K2's GEMM kernel on split operands, float32:
+    leaky(a_lo . w_hi^T + a_hi . w_lo^T + a_hi . w_hi^T + b), a [M, K],
+    w [N, K] -> [M, N]."""
+    acc = a_lo @ w_hi.t() + a_hi @ w_lo.t() + a_hi @ w_hi.t() + b
+    return torch.where(acc >= 0, acc, 0.01 * acc)
+
+
+def k2_head_ref(h3: torch.Tensor, x: torch.Tensor, w4: torch.Tensor,
+                b4: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2's head kernel: sigmoid(h3 . w4h + x . w4x +
+    b4), h3 [M, 128], x [M, K2_XK] float32, w4 [1, 128 + K2_XK] -> [M]."""
+    d3 = h3.shape[1]
+    return torch.sigmoid(h3 @ w4[0, :d3] + x @ w4[0, d3:] + b4)
+
+
+def _k2_mlp_ref(x: torch.Tensor, mats) -> torch.Tensor:
+    xs = tf32_split(x)
+    h = None
+    for i, (wt, b) in enumerate(mats[:4]):
+        if i == 0:
+            a = xs
+        elif i == 1:
+            a = h
+        else:
+            a = tuple(torch.cat([hp, xp], 1) for hp, xp in zip(h, xs))
+        h = tf32_split(tf32x3_linear_ref(*a, *tf32_split(wt), b))
+    return k2_head_ref(h[0] + h[1], x, *mats[4])
+
+
+def fused_dual_mlp_train_tf32x3_ref(xa: torch.Tensor, xb: torch.Tensor,
+                                    mask_a: torch.Tensor, fw: FusedWeights
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's arithmetic from the plain versions of its kernels: the split,
+    four 3xTF32 layers (each output split again), the head, per MLP; the
+    fine MLP's input column C the coarse prediction times ``mask_a``.
+    Float32 FusedWeights -> (pred_hr [N], pred_lr [N])."""
+    N, C = xa.shape
+
+    def padded(x, cols):
+        return torch.cat([x.float()] + cols
+                         + [x.new_zeros((N, K2_XK - C - len(cols)))], 1)
+
+    pred_lr = _k2_mlp_ref(padded(xa, []), _k2_mats(fw.w_lr, fw.b_lr,
+                                                   fw.spec_lr, fw.xk))
+    cond = pred_lr * mask_a.float()
+    pred_hr = _k2_mlp_ref(padded(xb, [cond[:, None]]),
+                          _k2_mats(fw.w_hr, fw.b_hr, fw.spec_hr, fw.xk))
+    return pred_hr, pred_lr
+
+
+def k2_scratch_floats(n: int) -> int:
+    """Floats of K2's scratch for n points: xa's and xb's tiles and
+    layers 0-3's outputs, each hi and lo, over n rounded up to 128."""
+    mp = -(-n // 128) * 128
+    return mp * 2 * (2 * K2_XK + sum(n_out for n_out, _ in K2_LAYERS))
+
+
 def fused_dual_mlp_train(xa: torch.Tensor, xb: torch.Tensor,
                          mask_a: torch.Tensor, fw: FusedWeights
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train-time dual chain: coarse MLP on ``xa`` [N, dims_lr[0]], fine
     MLP on ``xb`` [N, dims_lr[0]] + (``mask_a`` [N] * coarse prediction).
     Returns (pred_hr [N], pred_lr [N]) float32, both unmasked. CUDA
-    tensors launch kernel K2 (float32 weights; counted in
+    tensors launch kernel K2 (float32 weights, packed per call by
+    :func:`pack_k2`; its 11 kernel launches counted once in
     ``fused_dual_mlp_train.launches``); CPU tensors take
     :func:`fused_dual_mlp_train_ref`; anything else raises."""
     C = fw.spec_lr.dims[0]
@@ -313,12 +474,65 @@ def fused_dual_mlp_train(xa: torch.Tensor, xb: torch.Tensor,
     if fw.w_lr.dtype != torch.float32:
         raise ValueError("K2 is built for float32 weights, got "
                          f"{fw.w_lr.dtype}")
-    return _launch(fused_dual_mlp_train, "fused_dual_mlp",
-                   "surs_fused_dual_mlp_train_f32", fw, (N,),
-                   (xa.data_ptr(), xb.data_ptr(), mask_a.data_ptr(), C, N))
+    pk = pack_k2(fw)
+    scratch = torch.empty(k2_scratch_floats(N), dtype=torch.float32,
+                          device=dev)
+    return _launch(fused_dual_mlp_train, "fused_train_tf32",
+                   "surs_fused_dual_mlp_train_tf32x3", fw, (N,),
+                   (xa.data_ptr(), xb.data_ptr(), mask_a.data_ptr(), C, N),
+                   weights=(pk.w[0], pk.vec[0], pk.w[1], pk.vec[1],
+                            scratch))
 
 
 fused_dual_mlp_train.launches = 0
+
+
+def tf32x3_linear(a1: torch.Tensor, a2: Optional[torch.Tensor],
+                  w: torch.Tensor, bias: torch.Tensor, rows: int
+                  ) -> torch.Tensor:
+    """One layer of K2 alone: a1 [2, rows * K1] and a2 [2, rows * K2] (or
+    None) the hi / lo tiles of A = [a1 | a2] (:func:`split_tiles`), w
+    [2, N * (K1 + K2)] W's tiles, bias [N] float32 -> [2, rows * N], the
+    tiles of split(leaky(A . W^T + bias)). rows % 128 == 0. CUDA tensors
+    launch K2's GEMM kernel (counted in ``tf32x3_linear.launches``); CPU
+    tensors take :func:`tf32x3_linear_ref`."""
+    n_out = bias.shape[0]
+    k1 = a1.shape[1] // rows
+    k2 = 0 if a2 is None else a2.shape[1] // rows
+    ins = [a1, w, bias] + ([] if a2 is None else [a2])
+    if rows % 128 or n_out % 128 or k1 % 32 or k2 % 32 \
+            or w.shape != (2, n_out * (k1 + k2)) \
+            or any(t.dtype != torch.float32 or not t.is_contiguous()
+                   or t.device != a1.device for t in ins):
+        raise ValueError("tf32x3_linear takes contiguous float32 tiles on "
+                         "one device: rows and N multiples of 128, K of 32")
+    if a1.device.type == "cpu":
+        parts = [unsplit_tiles(a1, rows, k1)]
+        if a2 is not None:
+            parts.append(unsplit_tiles(a2, rows, k2))
+        a = torch.cat(parts, 2)
+        wt = unsplit_tiles(w, n_out, k1 + k2)
+        return split_tiles(tf32x3_linear_ref(a[0], a[1], wt[0], wt[1],
+                                             bias))
+    out = torch.empty((2, rows * n_out), dtype=torch.float32,
+                      device=a1.device)
+    lib = _kernel_lib("fused_train_tf32")
+    with torch.cuda.device(a1.device):
+        rc = lib.surs_tf32x3_gemm(
+            a1[0].data_ptr(), a1[1].data_ptr(), k1 // 32,
+            None if a2 is None else a2[0].data_ptr(),
+            None if a2 is None else a2[1].data_ptr(), k2 // 32,
+            w[0].data_ptr(), w[1].data_ptr(), bias.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), rows // 128, n_out,
+            torch.cuda.current_stream(a1.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("tf32x3_linear launch failed: "
+                           + lib.surs_cuda_error_string(rc).decode())
+    tf32x3_linear.launches += 1
+    return out
+
+
+tf32x3_linear.launches = 0
 
 
 def _train_weights(params, specs) -> FusedWeights:
@@ -958,7 +1172,11 @@ _SIGNATURES = {
     "fused_dual_mlp": {
         "surs_fused_dual_mlp_bf16": [_P, _I, _P, _I, _I] + [_P] * 6,
         "surs_fused_dual_mlp_f32": [_P, _I, _P, _I, _I] + _W7,
-        "surs_fused_dual_mlp_train_f32": [_P, _P, _P, _I, _I] + _W7,
+    },
+    "fused_train_tf32": {
+        "surs_fused_dual_mlp_train_tf32x3": [_P, _P, _P, _I, _I] + [_P] * 8,
+        "surs_tf32x3_gemm": [_P, _P, _I, _P, _P, _I] + [_P] * 5
+                            + [_I, _I, _P],
     },
     "fused_cols_mlp": {
         "surs_fused_dual_mlp_cols_f32": [_P, _P, _I, _P, _I, _I] + _W7,
