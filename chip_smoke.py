@@ -5,14 +5,14 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  1. build:   compile every CUDA kernel (K1 and K2 share one source, K3
-              and K4 a second, K5 a third) with nvcc from the repository's
-              sources (one nvcc per source, in parallel), with ptxas'
-              registers, spills and warnings per kernel and, where the
-              toolkit has cuobjdump, the HGMMA count of each kernel's
-              SASS; the bf16 K1/K3/K4 kernels must not spill, and their
-              chain kernels must hold HGMMA that ptxas did not serialize
-              (its C7511 report).
+  1. build:   compile every CUDA kernel (K1, K2, K3 and K4 together, K5:
+              four sources) with nvcc from the repository's sources (one
+              nvcc per source, in parallel), with ptxas' registers, spills
+              and warnings per kernel and, where the toolkit has
+              cuobjdump, the HGMMA count of each kernel's SASS; the bf16
+              K1/K3/K4 kernels and K2's 3xTF32 GEMM must not spill, and
+              those wgmma kernels must hold HGMMA that ptxas did not
+              serialize (its C7511 report).
   2. k1:      kernel K1 (fused dual MLP) against its plain PyTorch version
               on the card, at the serving shapes (N = 50,000 and a ragged
               49,999; in bf16 also 257, 129, 127 and 1, the ragged edges
@@ -20,10 +20,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               widths), in bf16 and float32, with the kernel's and the
               plain version's times, TFLOP/s and the card's bound for the
               same work.
-  3. k2:      kernel K2 (the training variant, float32) against its plain
-              version at the training shapes (N = B * num_sample_inout =
-              12,000 and a ragged 11,999; a mask with zeros), with times
-              and bound as for K1.
+  3. k2:      kernel K2 (the training variant, float32 weights, 3xTF32
+              on the tensor cores) against its plain version at the
+              training shapes (N = B * num_sample_inout = 12,000 and a
+              ragged 11,999; also 1, 127 and 129 around its 128-row
+              tiles; a mask with zeros), with times, the 3xTF32 and the
+              float32 FMA bounds, and its CUDA launches per call (from
+              torch.profiler); first its GEMM kernel alone at each
+              layer's shape (12,000 rows) against its plain version, with
+              ms per layer.
   4. k3:      kernel K3 (column-shared dual MLP) against its plain version
               on a slice of the dense 512^3 grid (1,024 columns x 512
               depths and a ragged 1,023 x 500; the real depth features of
@@ -128,9 +133,17 @@ K1_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
 K1_RAGGED = (257, 129, 127, 1)
 # the CLI phase's grid
 CLI_RESOLUTION = 128
-# K2 against its plain version, float32 weights and inputs: as K1's
-# float32 case (the same products summed in another order)
+# K2 against its plain version, float32 weights and inputs: 3xTF32 keeps
+# each product to about 2^-21 relative (lo.lo dropped, each split 2^-22),
+# at float32 FMA's level, and sums in another order; on outputs in [0, 1]
 K2_TOL = 1e-5
+# point counts around K2's 128-row tiles
+K2_RAGGED = (1, 127, 129)
+# K2's GEMM alone against its plain version on the same split operands,
+# max |difference| relative to the largest output: the same products in
+# another order (up to 3 x 1,024 terms, ~1e-7 relative each), and the
+# output's own split (2^-22)
+K2_LAYER_TOL = 1e-5
 # K3 and K4 against their plain versions: both round the features, every
 # activation and the depth term z * w_z to bf16 at the same points and
 # keep kf and pred_lr in float32; only the summation order differs (the
@@ -206,14 +219,19 @@ def time_cuda(fn, reps: int, warm: int = 2) -> float:
 
 
 KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
-           "fused_dual_mlp_train_f32_kernel", "cols_terms_bf16_kernel",
+           "fused_dual_mlp_train_tf32x3_gemm_kernel",
+           "fused_dual_mlp_train_tf32x3_split_kernel",
+           "fused_dual_mlp_train_tf32x3_head_kernel", "cols_terms_bf16_kernel",
            "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_cols_f32_kernel",
            "fused_dual_mlp_runs_wgmma_kernel", "fused_dual_mlp_runs_f32_kernel",
            "row_gather_vec_bf16_kernel", "row_gather_vec_f32_kernel",
            "row_gather_loop_bf16_kernel", "row_gather_loop_f32_kernel")
-SOURCES = ("fused_dual_mlp", "fused_cols_mlp", "row_gather")
-# the bf16 K1/K3/K4 chain kernels, whose SASS must hold warpgroup MMAs
+SOURCES = ("fused_dual_mlp", "fused_train_tf32", "fused_cols_mlp",
+           "row_gather")
+# the bf16 K1/K3/K4 chain kernels and K2's 3xTF32 GEMM, whose SASS must
+# hold warpgroup MMAs
 WGMMA_KERNELS = ("fused_dual_mlp_wgmma_kernel",
+                 "fused_dual_mlp_train_tf32x3_gemm_kernel",
                  "fused_dual_mlp_cols_wgmma_kernel",
                  "fused_dual_mlp_runs_wgmma_kernel")
 
@@ -273,6 +291,7 @@ def phase_build():
         serialized += [k for ln in log.splitlines() if "C7511" in ln
                        for k in KERNELS if k in ln]
     hgmma = {**sass_hgmma(libs["fused_dual_mlp"]),
+             **sass_hgmma(libs["fused_train_tf32"]),
              **sass_hgmma(libs["fused_cols_mlp"])}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": {k: v[0] for k, v in cuda_build.BUILD_LOG.items()},
@@ -285,11 +304,12 @@ def phase_build():
     spills = {k: v for k, v in ptxas.items()
               if v.get("spill_stores") or v.get("spill_loads")}
     if any(k in spills for k in WGMMA_KERNELS + ("cols_terms_bf16_kernel",)):
-        raise AssertionError(f"the bf16 K1/K3/K4 kernels spill: {spills}")
+        raise AssertionError(f"a wgmma kernel or the pre-pass spills: "
+                             f"{spills}")
     if any(k in serialized for k in WGMMA_KERNELS):
         raise AssertionError(f"ptxas serialized the wgmma of {serialized}")
     if hgmma and not all(hgmma.get(k) for k in WGMMA_KERNELS):
-        raise AssertionError(f"no HGMMA in a bf16 chain kernel: {hgmma}")
+        raise AssertionError(f"no HGMMA in a wgmma kernel: {hgmma}")
 
 
 def kernel_mlps():
@@ -356,20 +376,82 @@ def phase_k1():
     return results
 
 
+def k2_layers(rng):
+    """K2's GEMM kernel alone (``tf32x3_linear``) at each layer's shape,
+    12,000 rows (94 tiles of 128), against its plain version on the same
+    split operands; ms per layer."""
+    import torch
+    from surs_tpu_torch.ops import fused_mlp as fm
+
+    rows = -(-N_TRAIN // 128) * 128
+    recs = []
+    for i, (n_out, k) in enumerate(fm.K2_LAYERS):
+        a = torch.from_numpy(rng.standard_normal((rows, k)).astype(
+            np.float32)).cuda()
+        w = torch.from_numpy((rng.standard_normal((n_out, k)) / np.sqrt(k))
+                             .astype(np.float32)).cuda()
+        b = torch.from_numpy((0.1 * rng.standard_normal(n_out)).astype(
+            np.float32)).cuda()
+        # layers 2 and 3 read [h | x]: two operands, as in K2
+        kh = k - fm.K2_XK if i >= 2 else k
+        a1 = fm.split_tiles(a[:, :kh])
+        a2 = fm.split_tiles(a[:, kh:]) if kh < k else None
+        wt = fm.split_tiles(w)
+        out = fm.tf32x3_linear(a1, a2, wt, b, rows)
+        torch.cuda.synchronize()
+        hi, lo = fm.unsplit_tiles(out, rows, n_out)
+        sa, sw = fm.tf32_split(a), fm.tf32_split(w)
+        want = fm.tf32x3_linear_ref(*sa, *sw, b)
+        err = ((hi + lo - want).abs().max() / want.abs().max()).item()
+        rec = {"phase": "k2_layer", "layer": i, "rows": rows, "k": k,
+               "n": n_out, "max_rel_err": err, "tol": K2_LAYER_TOL,
+               "ms": time_cuda(lambda: fm.tf32x3_linear(a1, a2, wt, b,
+                                                        rows), 20),
+               "plain_ms": time_cuda(lambda: fm.tf32x3_linear_ref(
+                   *sa, *sw, b), 10)}
+        rec["tf32_tflops"] = 3 * 2.0 * rows * k * n_out / (
+            rec["ms"] * 1e-3) / 1e12
+        emit(rec)
+        recs.append(rec)
+        if not (bool(torch.isfinite(hi).all()) and err <= K2_LAYER_TOL):
+            raise AssertionError(f"K2's GEMM disagrees with its plain "
+                                 f"version: {rec}")
+    return recs
+
+
+def device_kernels(fn) -> dict:
+    """{name: launches} of the device operations ``fn`` runs, from
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not ev.is_user_annotation}
+
+
 def phase_k2():
-    """K2 (float32) against its plain version at the training shapes."""
+    """K2 (float32 weights, 3xTF32) against its plain version at the
+    training shapes, after its GEMM alone at each layer's shape."""
     import torch
     from surs_tpu_torch import roofline
     from surs_tpu_torch.ops import fused_mlp as fm
 
     fw = fm.prepare_fused_weights(*kernel_mlps(), dtype=torch.float32)
     rng = np.random.default_rng(SEED + 1)
-    out = {}
-    for n in (N_TRAIN, N_TRAIN - 1):
+    out = {"layers": k2_layers(rng)}
+    for n in (N_TRAIN, N_TRAIN - 1) + K2_RAGGED:
         xa, xb = (torch.from_numpy(rng.standard_normal((n, 321)).astype(
             np.float32)).cuda() for _ in range(2))
-        mask = torch.from_numpy((rng.random(n) > 0.3).astype(
-            np.float32)).cuda()
+        mask = (rng.random(n) > 0.3).astype(np.float32)
+        mask[0] = 0.0                    # a masked point at every n
+        mask = torch.from_numpy(mask).cuda()
         hr, lr = fm.fused_dual_mlp_train(xa, xb, mask, fw)
         torch.cuda.synchronize()
         ref_hr, ref_lr = fm.fused_dual_mlp_train_ref(xa, xb, mask, fw)
@@ -382,22 +464,30 @@ def phase_k2():
                "pred_hr_range": [hr.min().item(), hr.max().item()],
                "pred_lr_range": [lr.min().item(), lr.max().item()]}
         if n == N_TRAIN:
-            flops, nbytes = roofline.k2_work(n)
-            b_ms, b_by = roofline.bound(flops, nbytes, "float32")
+            flops, nbytes = roofline.k2_tf32x3_work(n)
+            b_ms, b_by = roofline.bound(flops, nbytes, "tf32")
+            fma_ms, _ = roofline.bound(*roofline.k2_work(n), "float32")
+            ops = device_kernels(lambda: fm.fused_dual_mlp_train(
+                xa, xb, mask, fw))
             rec.update(
                 ms=time_cuda(lambda: fm.fused_dual_mlp_train(xa, xb, mask,
                                                              fw), 20),
+                pack_ms=time_cuda(lambda: fm.pack_k2(fw), 20),
                 plain_ms=time_cuda(lambda: fm.fused_dual_mlp_train_ref(
                     xa, xb, mask, fw), 20),
-                bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
-                library_ms=None)
-            rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+                bound_ms=b_ms, bound_by=b_by, bound_fma_ms=fma_ms,
+                tf32_gflop=flops / 1e9, library_ms=None,
+                k2_kernel_launches_per_call=sum(
+                    c for k, c in ops.items() if "fused_dual_mlp_train" in k),
+                device_ops_per_call=sum(ops.values()))
+            rec["float32_tflops"] = flops / 3 / (rec["ms"] * 1e-3) / 1e12
         emit(rec)
         out[n] = rec
         if not ok or not err <= K2_TOL or rec["mask_zeros"] == 0:
             raise AssertionError(f"K2 disagrees with its plain version: "
                                  f"{rec}")
     return out
+
 
 def grid_depths(R: int = DENSE_R):
     """The depth features zf [R] of the eval calibration's R^3 grid over
@@ -1462,14 +1552,17 @@ def main() -> int:
     }, {
         "name": "fused_dual_mlp_train",
         "route": "cuda",
-        "source": "surs_tpu_torch/csrc/fused_dual_mlp.cu",
+        "source": "surs_tpu_torch/csrc/fused_train_tf32.cu",
         "replaces": "surs_tpu/ops/fused_mlp.py:313",
         "launches": tr["k2_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+        "max_abs_err": max(r["max_abs_err"] for n, r in k2.items()
+                           if n != "layers"),
         "ms": k2_rec["ms"],
         "plain_ms": k2_rec["plain_ms"],
         "bound_ms": k2_rec["bound_ms"],
         "bound_by": k2_rec["bound_by"],
+        "bound_fma_ms": k2_rec["bound_fma_ms"],
+        "cuda_launches_per_call": k2_rec["k2_kernel_launches_per_call"],
         "library_ms": None,
     }, {
         "name": "fused_dual_mlp_cols",

@@ -4,12 +4,15 @@
 A kernel's bound is the larger of two times: the bytes it must move
 (each input read once, each output written once) over the card's
 memory rate, and the operations it must do over the card's peak rate
-for their type (NVIDIA's data sheet: dense bf16 989 TFLOP/s, float32
-outside the tensor cores 67 TFLOP/s, HBM3 3.35 TB/s; at the 700 W
-limit). Operations are the real multiply-adds of the occupancy MLPs
+for their type (NVIDIA's data sheet: dense bf16 989 TFLOP/s, dense TF32
+495 TFLOP/s, float32 outside the tensor cores 67 TFLOP/s, HBM3 3.35
+TB/s; at the 700 W limit). Operations are the real multiply-adds of the occupancy MLPs
 (2 FLOP each), counted from the layer widths: K1 and K2 run both MLPs
 per point; K3 and K4 run the feature products once per column (or
 window) and only the hidden chain per depth sample; K5 only moves rows.
+K2 is float32-accurate on the tensor cores by 3xTF32 (three TF32
+products per float32 product): its bound counts the same multiply-adds
+three times at the TF32 peak, beside the float32 FMA bound.
 
     python -m surs_tpu_torch.roofline     # the table at main-path shapes
 
@@ -22,7 +25,7 @@ from __future__ import annotations
 import json
 from typing import Dict, Sequence, Tuple
 
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 DIMS_LR = (321, 1024, 512, 256, 128, 1)
 DIMS_HR = (322, 1024, 512, 256, 128, 1)
@@ -85,6 +88,15 @@ def k2_work(n: int):
     return dual_mlp_work(n, "float32", 2 * 321 * 4 + 4)
 
 
+def k2_tf32x3_work(n: int):
+    """K2 in 3xTF32 (bound at the "tf32" peak): each float32 product is
+    three TF32 products, so three times k2_work's operations; the same
+    bytes (the function's inputs, weights and outputs, not the design's
+    split operands)."""
+    flops, nbytes = k2_work(n)
+    return 3.0 * flops, nbytes
+
+
 def k3_work(ncol: int, z: int, dtype: str = "bfloat16"):
     """K3: x_lr [ncol, 256], x_hr [ncol, 64] float32, zf [z]; outputs
     [ncol, z] x 2 float32."""
@@ -121,7 +133,10 @@ MAIN_PATH = {
     "K1": ("fused_dual_mlp, 50,000 points per call, bf16 weights",
            lambda: k1_work(50_000, "bfloat16"), "bfloat16"),
     "K2": ("fused_dual_mlp_train, 12,000 points per call (batch 2 x "
-           "6,000), float32 weights", lambda: k2_work(12_000), "float32"),
+           "6,000), float32 weights, 3xTF32 on the tensor cores",
+           lambda: k2_tf32x3_work(12_000), "tf32"),
+    "K2_fma": ("the same in float32 FMA outside the tensor cores",
+               lambda: k2_work(12_000), "float32"),
     "K3": ("fused_dual_mlp_cols, one dense 512^3 grid: 262,144 columns "
            "x 512 depths, bf16 weights",
            lambda: k3_work(512 * 512, 512), "bfloat16"),
