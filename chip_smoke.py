@@ -28,7 +28,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               float32 FMA bounds, and its CUDA launches per call (from
               torch.profiler); first its GEMM kernel alone at each
               layer's shape (12,000 rows) against its plain version, with
-              ms per layer.
+              ms per layer, and its weight-pack kernel alone against its
+              plain version, bit for bit.
   4. k3:      kernel K3 (column-shared dual MLP) against its plain version
               on a slice of the dense 512^3 grid (1,024 columns x 512
               depths and a ragged 1,023 x 500; the real depth features of
@@ -446,6 +447,16 @@ def phase_k2():
     fw = fm.prepare_fused_weights(*kernel_mlps(), dtype=torch.float32)
     rng = np.random.default_rng(SEED + 1)
     out = {"layers": k2_layers(rng)}
+    # the pack kernel alone: bit for bit its plain version (integer split)
+    wt = fm.pack_k2(fw)
+    torch.cuda.synchronize()
+    out["pack"] = {"phase": "k2_pack",
+                   "equal": bool(torch.equal(wt, fm.pack_k2_ref(fw))),
+                   "ms": time_cuda(lambda: fm.pack_k2(fw), 20),
+                   "plain_ms": time_cuda(lambda: fm.pack_k2_ref(fw), 5)}
+    emit(out["pack"])
+    if not out["pack"]["equal"]:
+        raise AssertionError("K2's pack kernel disagrees with pack_k2_ref")
     for n in (N_TRAIN, N_TRAIN - 1) + K2_RAGGED:
         xa, xb = (torch.from_numpy(rng.standard_normal((n, 321)).astype(
             np.float32)).cuda() for _ in range(2))
@@ -472,7 +483,6 @@ def phase_k2():
             rec.update(
                 ms=time_cuda(lambda: fm.fused_dual_mlp_train(xa, xb, mask,
                                                              fw), 20),
-                pack_ms=time_cuda(lambda: fm.pack_k2(fw), 20),
                 plain_ms=time_cuda(lambda: fm.fused_dual_mlp_train_ref(
                     xa, xb, mask, fw), 20),
                 bound_ms=b_ms, bound_by=b_by, bound_fma_ms=fma_ms,
@@ -1556,7 +1566,7 @@ def main() -> int:
         "replaces": "surs_tpu/ops/fused_mlp.py:313",
         "launches": tr["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for n, r in k2.items()
-                           if n != "layers"),
+                           if isinstance(n, int)),
         "ms": k2_rec["ms"],
         "plain_ms": k2_rec["plain_ms"],
         "bound_ms": k2_rec["bound_ms"],

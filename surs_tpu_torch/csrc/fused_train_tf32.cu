@@ -23,21 +23,29 @@
 // The design: one GEMM kernel per layer and MLP,
 //   out = leaky(A . W^T + b),  A = [a1 | a2] along k (h, then the input),
 // on a tile of 128 rows x 128 outputs: two consumer warpgroups (64 rows
-// each, one m64n128 float32 accumulator) and a producer warp that streams
-// k-chunks of 32 through a ring of SLOTS stages with cp.async.bulk on
-// mbarriers. A stage is A_hi, A_lo, B_hi, B_lo, each [128 rows x 32]
-// float32 (16 KB) in the 128-byte-swizzled K-major layout; per chunk each
-// consumer issues 4 k8 steps x 3 products of wgmma m64n128k8 tf32, both
-// operands in shared memory. Every operand is pre-split and pre-swizzled
-// in global memory, so the kernel only copies and multiplies:
-//   * weights: nn.Linear's [out, in] is already K-major; ops/fused_mlp.py
-//     packs it per call into hi and lo tiles (the input block padded from
-//     321 / 322 to XK = 352 columns, a multiple of 32);
-//   * activations: each epilogue writes leaky(acc + b) split, as hi and lo
+// each) and a producer warpgroup, whose registers go to the consumers
+// (setmaxnreg), one thread of which streams k-chunks of 32 through a ring
+// of SLOTS stages with cp.async.bulk on mbarriers. A stage is A_hi, A_lo,
+// B_hi, B_lo, each [128 rows x 32] float32 (16 KB) in the 128-byte-
+// swizzled K-major layout; per chunk each consumer issues 4 k8 steps x 3
+// products of wgmma m64n128k8 tf32, both operands in shared memory, into
+// a fresh m64n128 float32 partial, then adds the partial to its float32
+// sum on the CUDA cores. The tensor cores add each step into the
+// accumulator with a truncating alignment, about an ulp toward zero a
+// step: over a whole layer (up to 3 x 1,024 / 8 steps) that bias reached
+// 9e-6 of the output; summed per chunk of 12 steps and then rounded to
+// nearest, it stays at the float32 FMA's level. Every operand is
+// pre-split and pre-swizzled in global memory, so the GEMM only copies
+// and multiplies:
+//   * weights: the pack kernel reads ops/fused_mlp.py's FusedWeights
+//     packing ([in, out] blocks, dual_mlp.cuh's OFF_W*) and writes each
+//     W_i [out, in] as hi and lo tiles (the input block padded to KX =
+//     352 columns, a multiple of 32), per call, on the card;
+//   * activations: each epilogue writes leaky(sum + b) split, as hi and lo
 //     tiles of the next layer's A;
 //   * inputs: the split kernel writes xa and xb as hi / lo tiles.
-// The head kernel runs layer 4 (128 + 352 -> 1) and the sigmoid in
-// float32 FMA (480 multiply-adds a point), a warp per point. After the
+// The head kernel runs layer 4 (128 + 322 -> 1) and the sigmoid in
+// float32 FMA, a warp per point, from the FusedWeights packing. After the
 // coarse MLP it also writes mask_a * pred_lr, split, into input column 321
 // of xb's tiles: the fine MLP's conditioning.
 //
@@ -48,6 +56,7 @@
 // Built with nvcc into a shared library with a plain C interface
 // (ops/cuda_build.py); the wrapper is ops/fused_mlp.py:fused_dual_mlp_train.
 
+#include "dual_mlp.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -58,34 +67,41 @@ constexpr int TILE_BYTES = TILE * 4;       // 16 KB
 constexpr int SLOTS = 3;                   // ring stages
 constexpr int STAGE_BYTES = 4 * TILE_BYTES;  // A_hi, A_lo, B_hi, B_lo
 constexpr int CONSUMERS = 256;             // two warpgroups, 64 rows each
-constexpr int GEMM_THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int GEMM_THREADS = CONSUMERS + 128;  // + the producer warpgroup
+// registers a thread after the split (setmaxnreg): 2 x 128 x 240 +
+// 128 x 24 of the SM's 65,536
+constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
 constexpr int BAR_OFF = SLOTS * STAGE_BYTES;
 // + 1,024 bytes to align the base for the swizzle atoms
 constexpr size_t GEMM_SMEM = BAR_OFF + 2 * SLOTS * 8 + 1024;
 static_assert(GEMM_SMEM <= 232448, "over a block's 227 KB of shared memory");
 
-// the widths K2 is built for (ops/fused_mlp.py checks them)
-constexpr int XK = 352, XC = XK / TK;      // the padded input: 11 chunks
-constexpr int D0 = 1024, D1 = 512, D2 = 256, D3 = 128;
-// one MLP's packed weights (ops/fused_mlp.py:K2_LAYERS): per layer i the
-// hi tiles then the lo tiles of W_i [N_i, K_i], K_i = (h width) + XK for
-// the layers that read the input
-constexpr int L_N[4] = {D0, D1, D2, D3};
-constexpr int L_K[4] = {XK, D0, D1 + XK, D2 + XK};
-constexpr size_t L_OFF[4] = {
-    0, 2ull * D0 * XK, 2ull * D0 * XK + 2ull * D1 * D0,
-    2ull * D0 * XK + 2ull * D1 * D0 + 2ull * D2 * (D1 + XK)};
-// one MLP's float32 vector (ops/fused_mlp.py:K2_VEC_OFF): b0..b3, w4h,
-// w4x (XK, zero-padded), then [b4, 0, 0, 0]
-constexpr int V_B[4] = {0, 1024, 1536, 1792};
-constexpr int V_W4H = 1920, V_W4X = 2048, V_B4 = 2400;
+// the input padded to a multiple of 32 (ops/fused_mlp.py:K2_XK): 11 chunks
+constexpr int KX = 352, KXC = KX / TK;
+// one MLP's weight tiles (ops/fused_mlp.py:K2_LAYERS): per layer the hi
+// tiles then the lo tiles of W [n, k], k = kh (the h width) + KX for the
+// layers that read the input
+constexpr size_t WBUF = 2ull * (D0 * KX + D1 * D0 + D2 * (D1 + KX) +
+                                D3 * (D2 + KX));
+struct Layer {
+  int n, k, kh;
+  size_t off;      // in one MLP's tiles
+  size_t wh, wx;   // the h and x blocks in the FusedWeights packing
+  int bias;        // the bias, ditto
+};
+__host__ __device__ __forceinline__ Layer layer_of(int i) {
+  constexpr size_t O1 = 2ull * D0 * KX, O2 = O1 + 2ull * D1 * D0,
+                   O3 = O2 + 2ull * D2 * (D1 + KX);
+  switch (i) {
+    case 0: return Layer{D0, KX, 0, 0, 0, OFF_W0X, OFF_B0};
+    case 1: return Layer{D1, D0, D0, O1, OFF_W1H, 0, OFF_B1};
+    case 2: return Layer{D2, D1 + KX, D1, O2, OFF_W2H, OFF_W2X, OFF_B2};
+    default: return Layer{D3, D2 + KX, D2, O3, OFF_W3H, OFF_W3X, OFF_B3};
+  }
+}
 
 constexpr int HEAD_WARPS = 8;              // points per head block
-constexpr int SPLIT_THREADS = 256;
-
-__device__ __forceinline__ float leaky(float v) {
-  return v >= 0.f ? v : 0.01f * v;
-}
+constexpr int SPLIT_THREADS = 256, PACK_THREADS = 256;
 
 // tf32 round-to-nearest, ties away from zero, of a finite float32
 __device__ __forceinline__ float tf32_rna(float v) {
@@ -154,9 +170,9 @@ __device__ __forceinline__ void gemm_consume(const GemmArgs& a, uint32_t ring,
   const int t = threadIdx.x;
   const int w = t >> 7, warp = (t >> 5) & 3, lane = t & 31, tig = lane & 3;
   const int kcs = a.a1.kc + a.a2.kc;
-  float d[64];
+  float acc[64], d[64];   // the sum and one chunk's partial
 #pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
 #pragma unroll 1
   for (int kc = 0; kc < kcs; ++kc) {
     const int slot = kc % SLOTS;
@@ -169,21 +185,23 @@ __device__ __forceinline__ void gemm_consume(const GemmArgs& a, uint32_t ring,
     wg_fence();
 #pragma unroll
     for (int j = 0; j < TK / 8; ++j) {
-      // lo.hi + hi.lo + hi.hi: the small terms first
+      // lo.hi + hi.lo + hi.hi: the small terms first; the chunk's first
+      // product overwrites the partial
       wgmma_ss_tf32(d, wg_desc(al + 32 * j, 1024), wg_desc(bh + 32 * j, 1024),
-                    1);
+                    j);
       wgmma_ss_tf32(d, wg_desc(ah + 32 * j, 1024), wg_desc(bl + 32 * j, 1024),
                     1);
       wgmma_ss_tf32(d, wg_desc(ah + 32 * j, 1024), wg_desc(bh + 32 * j, 1024),
                     1);
     }
     wg_commit();
-    // the previous chunk's products are done: its slot goes
-    wg_wait<1>();
-    if (kc > 0) mbar_arrive(empty + 8 * ((kc - 1) % SLOTS));
+    wg_wait<0>();
+    wg_fence_acc(d);
+    // the chunk's products are done: its slot goes, its partial is added
+    mbar_arrive(empty + 8 * slot);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += d[i];
   }
-  wg_wait<0>();
-  wg_fence_acc(d);
 
   // the epilogue: rows m0 and m0 + 8, outputs n0 + 8 i + {0, 1}
   const int m0 = blockIdx.y * TM + 64 * w + 16 * warp + (lane >> 2);
@@ -193,9 +211,9 @@ __device__ __forceinline__ void gemm_consume(const GemmArgs& a, uint32_t ring,
     const int n = n0 + 8 * i;
     const float2 b = __ldg(reinterpret_cast<const float2*>(a.bias + n));
     store_split2(a.out_hi, a.out_lo, tile_off(m0, n, a.ncs),
-                 leaky(d[4 * i] + b.x), leaky(d[4 * i + 1] + b.y));
+                 leaky(acc[4 * i] + b.x), leaky(acc[4 * i + 1] + b.y));
     store_split2(a.out_hi, a.out_lo, tile_off(m0 + 8, n, a.ncs),
-                 leaky(d[4 * i + 2] + b.x), leaky(d[4 * i + 3] + b.y));
+                 leaky(acc[4 * i + 2] + b.x), leaky(acc[4 * i + 3] + b.y));
   }
 }
 
@@ -216,14 +234,49 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
     mbar_fence_init();
   }
   __syncthreads();
+  // warpgroup 2 produces and hands its registers to warpgroups 0 and 1
   if (t >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (t == CONSUMERS) gemm_produce(a, ring, full, empty);
   } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     gemm_consume(a, ring, full, empty);
   }
 }
 
-// xa and xb (blockIdx.y) [n, w] as hi / lo tiles [mp / 128][XC][TILE]:
+// Both MLPs' weights (blockIdx.z) from the FusedWeights packing ([in, out]
+// blocks) as K2's tiles: layer blockIdx.y's W [n, k] split, hi tiles then
+// lo tiles; a thread per 4 k of one output n (neighbouring threads on
+// neighbouring n: the reads coalesce).
+__global__ void __launch_bounds__(PACK_THREADS)
+    fused_dual_mlp_train_tf32x3_pack_kernel(const float* __restrict__ w_lr,
+                                            const float* __restrict__ w_hr,
+                                            float* wt) {
+  const Layer L = layer_of(blockIdx.y);
+  const float* w = blockIdx.z ? w_hr : w_lr;
+  const int q = blockIdx.x * PACK_THREADS + threadIdx.x;
+  if (q >= L.n * L.k / 4) return;
+  const int n = q % L.n, k = 4 * (q / L.n);
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int kk = k + e;
+    v[e] = kk < L.kh ? __ldg(w + L.wh + (size_t)kk * L.n + n)
+           : kk - L.kh < XK ? __ldg(w + L.wx + (size_t)(kk - L.kh) * L.n + n)
+                            : 0.f;
+  }
+  float4 h, l;
+  h.x = tf32_rna(v[0]); h.y = tf32_rna(v[1]);
+  h.z = tf32_rna(v[2]); h.w = tf32_rna(v[3]);
+  l.x = tf32_rna(v[0] - h.x); l.y = tf32_rna(v[1] - h.y);
+  l.z = tf32_rna(v[2] - h.z); l.w = tf32_rna(v[3] - h.w);
+  float* out = wt + blockIdx.z * WBUF + L.off;
+  const size_t o = tile_off(n, k, L.k / TK);
+  *reinterpret_cast<float4*>(out + o) = h;
+  *reinterpret_cast<float4*>(out + (size_t)L.n * L.k + o) = l;
+}
+
+// xa and xb (blockIdx.y) [n, w] as hi / lo tiles [mp / 128][KXC][TILE]:
 // columns past w and rows past n zero.
 __global__ void __launch_bounds__(SPLIT_THREADS)
     fused_dual_mlp_train_tf32x3_split_kernel(const float* __restrict__ xa,
@@ -235,7 +288,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
   const float* x = b ? xb : xa;
   float* hi = b ? xb_hi : xa_hi;
   float* lo = b ? xb_lo : xa_lo;
-  const int quads = XK / 4;
+  const int quads = KX / 4;
   const long long i = (long long)blockIdx.x * SPLIT_THREADS + threadIdx.x;
   if (i >= (long long)mp * quads) return;
   const int m = (int)(i / quads), k = 4 * (int)(i % quads);
@@ -248,7 +301,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
   h.z = tf32_rna(v[2]); h.w = tf32_rna(v[3]);
   l.x = tf32_rna(v[0] - h.x); l.y = tf32_rna(v[1] - h.y);
   l.z = tf32_rna(v[2] - h.z); l.w = tf32_rna(v[3] - h.w);
-  const size_t o = tile_off(m, k, XC);
+  const size_t o = tile_off(m, k, KXC);
   *reinterpret_cast<float4*>(hi + o) = h;
   *reinterpret_cast<float4*>(lo + o) = l;
 }
@@ -259,10 +312,11 @@ struct HeadArgs {
   const float* x;      // the MLP's input [n, w] float32
   int w;
   int n;
-  const float* vec;    // the MLP's vector (V_*)
+  const float* wts;    // the MLP's FusedWeights packing: w4h, w4x
+  const float* bias;   // ditto, its biases: b4
   const float* mask;   // [n]
-  const float* cond;   // the fine MLP: pred_lr [n] (column w is cond *
-                       // mask); the coarse MLP: null
+  const float* cond;   // the fine MLP: pred_lr [n] (input column w is
+                       // cond * mask); the coarse MLP: null
   float* out;          // [n]
   float* xb_hi;        // the coarse MLP: xb's tiles, column w gets
   float* xb_lo;        // split(mask * pred); the fine MLP: null
@@ -279,23 +333,24 @@ __global__ void __launch_bounds__(HEAD_WARPS * 32)
   const size_t o = tile_off(m, 4 * lane, D3 / TK);
   const float4 hh = *reinterpret_cast<const float4*>(a.h_hi + o);
   const float4 hl = *reinterpret_cast<const float4*>(a.h_lo + o);
-  const float4 wh = __ldg(reinterpret_cast<const float4*>(a.vec + V_W4H) +
+  const float* w4x = a.wts + OFF_W4X;
+  const float4 wh = __ldg(reinterpret_cast<const float4*>(a.wts + OFF_W4H) +
                           lane);
   float s = (hh.x + hl.x) * wh.x + (hh.y + hl.y) * wh.y +
             (hh.z + hl.z) * wh.z + (hh.w + hl.w) * wh.w;
   for (int k = lane; k < a.w; k += 32)
-    s += __ldg(a.x + (size_t)m * a.w + k) * __ldg(a.vec + V_W4X + k);
+    s += __ldg(a.x + (size_t)m * a.w + k) * __ldg(w4x + k);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane != 0) return;
-  if (a.cond) s += a.cond[m] * a.mask[m] * __ldg(a.vec + V_W4X + a.w);
-  const float p = 1.f / (1.f + expf(-(s + __ldg(a.vec + V_B4))));
+  if (a.cond) s += a.cond[m] * a.mask[m] * __ldg(w4x + a.w);
+  const float p = 1.f / (1.f + expf(-(s + __ldg(a.bias + OFF_B4))));
   a.out[m] = p;
   if (a.xb_hi) {
     const float c = p * a.mask[m];
     const float h = tf32_rna(c);
-    const size_t oc = tile_off(m, a.w, XC);
+    const size_t oc = tile_off(m, a.w, KXC);
     a.xb_hi[oc] = h;
     a.xb_lo[oc] = tf32_rna(c - h);
   }
@@ -315,6 +370,15 @@ cudaError_t set_gemm_smem() {
                               (int)GEMM_SMEM);
 }
 
+cudaError_t launch_pack(const float* w_lr, const float* w_hr, float* wt,
+                        cudaStream_t stream) {
+  const int quads = D1 * D0 / 4;   // the largest layer's
+  fused_dual_mlp_train_tf32x3_pack_kernel<<<
+      dim3((quads + PACK_THREADS - 1) / PACK_THREADS, 4, 2), PACK_THREADS, 0,
+      stream>>>(w_lr, w_hr, wt);
+  return cudaGetLastError();
+}
+
 // hi / lo halves of a scratch operand of rows x k floats each
 struct Buf {
   float* hi;
@@ -326,33 +390,28 @@ Buf carve(float*& p, size_t rows, int k) {
   return b;
 }
 
-// One MLP: layers 0-3 on the tensor cores, then the head.
-cudaError_t run_mlp(Buf x, const Buf (&h)[4], const float* wts,
-                    const float* vec, HeadArgs head, int mtiles,
+// One MLP: layers 0-3 on the tensor cores (weight tiles wt), then the
+// head.
+cudaError_t run_mlp(Buf x, const Buf (&h)[4], const float* wt,
+                    const float* bias, HeadArgs head, int mtiles,
                     cudaStream_t stream) {
   for (int i = 0; i < 4; ++i) {
-    const size_t half = (size_t)L_N[i] * L_K[i];
+    const Layer L = layer_of(i);
     GemmArgs g;
-    if (i == 0) {
-      g.a1 = Operand{x.hi, x.lo, XC};
-      g.a2 = Operand{nullptr, nullptr, 0};
-    } else {
-      g.a1 = Operand{h[i - 1].hi, h[i - 1].lo, L_N[i - 1] / TK};
-      g.a2 = i == 1 ? Operand{nullptr, nullptr, 0}
-                    : Operand{x.hi, x.lo, XC};
-    }
-    g.b_hi = wts + L_OFF[i];
-    g.b_lo = wts + L_OFF[i] + half;
-    g.bias = vec + V_B[i];
+    g.a1 = i == 0 ? Operand{x.hi, x.lo, KXC}
+                  : Operand{h[i - 1].hi, h[i - 1].lo, L.kh / TK};
+    g.a2 = i >= 2 ? Operand{x.hi, x.lo, KXC} : Operand{nullptr, nullptr, 0};
+    g.b_hi = wt + L.off;
+    g.b_lo = wt + L.off + (size_t)L.n * L.k;
+    g.bias = bias + L.bias;
     g.out_hi = h[i].hi;
     g.out_lo = h[i].lo;
-    g.ncs = L_N[i] / TK;
-    const cudaError_t e = launch_gemm(g, mtiles, L_N[i], stream);
+    g.ncs = L.n / TK;
+    const cudaError_t e = launch_gemm(g, mtiles, L.n, stream);
     if (e != cudaSuccess) return e;
   }
   head.h_hi = h[3].hi;
   head.h_lo = h[3].lo;
-  head.vec = vec;
   fused_dual_mlp_train_tf32x3_head_kernel<<<
       (head.n + HEAD_WARPS - 1) / HEAD_WARPS, HEAD_WARPS * 32, 0, stream>>>(
       head);
@@ -363,49 +422,61 @@ cudaError_t run_mlp(Buf x, const Buf (&h)[4], const float* wts,
 
 extern "C" {
 
-// Launch K2 on `stream`: the split, the coarse MLP's four layers and
-// head, the fine MLP's four layers and head (11 launches); returns the
-// first cudaGetLastError() that is not 0. xa, xb [n, w] float32 with
-// w == 321, mask_a [n]; w_lr / w_hr one MLP's packed weight tiles,
-// v_lr / v_hr its vector (ops/fused_mlp.py:pack_k2); scratch of
+// Launch K2 on `stream`: the weight pack, the split, the coarse MLP's four
+// layers and head, the fine MLP's four layers and head (12 launches);
+// returns the first cudaGetLastError() that is not 0. xa, xb [n, w]
+// float32 with w == 321, mask_a [n]; w_*, b_* the float32 FusedWeights
+// packing (ops/fused_mlp.py:prepare_fused_weights); wt [2, WBUF] floats
+// for the weight tiles (ops/fused_mlp.py:K2_WBUF); scratch of
 // ops/fused_mlp.py:k2_scratch_floats(n) floats: xa's and xb's tiles, then
 // layers 0-3's outputs, each hi then lo, over n rounded up to 128 rows
 // (carved in that order below); out_* [n] float32.
 int surs_fused_dual_mlp_train_tf32x3(const void* xa, const void* xb,
                                      const void* mask_a, int w, int n,
-                                     const void* w_lr, const void* v_lr,
-                                     const void* w_hr, const void* v_hr,
-                                     void* scratch, void* out_hr,
+                                     const void* w_lr, const void* b_lr,
+                                     const void* w_hr, const void* b_hr,
+                                     void* wt, void* scratch, void* out_hr,
                                      void* out_lr, void* stream) {
   cudaError_t e = set_gemm_smem();
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
+  float* wtf = (float*)wt;
+  e = launch_pack((const float*)w_lr, (const float*)w_hr, wtf, s);
+  if (e != cudaSuccess) return (int)e;
   const int mtiles = (n + TM - 1) / TM;
   const size_t mp = (size_t)mtiles * TM;
   float* p = (float*)scratch;
-  const Buf xa_t = carve(p, mp, XK), xb_t = carve(p, mp, XK);
+  const Buf xa_t = carve(p, mp, KX), xb_t = carve(p, mp, KX);
   const Buf h[4] = {carve(p, mp, D0), carve(p, mp, D1), carve(p, mp, D2),
                     carve(p, mp, D3)};
-  const long long quads = (long long)mp * (XK / 4);
+  const long long quads = (long long)mp * (KX / 4);
   fused_dual_mlp_train_tf32x3_split_kernel<<<
       dim3((unsigned)((quads + SPLIT_THREADS - 1) / SPLIT_THREADS), 2),
       SPLIT_THREADS, 0, s>>>((const float*)xa, (const float*)xb, w, n,
                              (int)mp, xa_t.hi, xa_t.lo, xb_t.hi, xb_t.lo);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  HeadArgs lr{nullptr, nullptr, (const float*)xa, w, n, nullptr,
-              (const float*)mask_a, nullptr, (float*)out_lr, xb_t.hi,
-              xb_t.lo};
-  e = run_mlp(xa_t, h, (const float*)w_lr, (const float*)v_lr, lr, mtiles, s);
+  HeadArgs lr{nullptr, nullptr, (const float*)xa, w, n, (const float*)w_lr,
+              (const float*)b_lr, (const float*)mask_a, nullptr,
+              (float*)out_lr, xb_t.hi, xb_t.lo};
+  e = run_mlp(xa_t, h, wtf, (const float*)b_lr, lr, mtiles, s);
   if (e != cudaSuccess) return (int)e;
-  HeadArgs hr{nullptr, nullptr, (const float*)xb, w, n, nullptr,
-              (const float*)mask_a, (const float*)out_lr, (float*)out_hr,
-              nullptr, nullptr};
-  e = run_mlp(xb_t, h, (const float*)w_hr, (const float*)v_hr, hr, mtiles, s);
-  return (int)e;
+  HeadArgs hr{nullptr, nullptr, (const float*)xb, w, n, (const float*)w_hr,
+              (const float*)b_hr, (const float*)mask_a,
+              (const float*)out_lr, (float*)out_hr, nullptr, nullptr};
+  return (int)run_mlp(xb_t, h, wtf + WBUF, (const float*)b_hr, hr, mtiles,
+                      s);
 }
 
-// One layer alone on `stream` (the piece check): out = leaky([a1 | a2] .
-// W^T + b) for m_tiles x 128 rows and n_out outputs, every operand hi / lo
+// The weight pack alone on `stream` (its check): wt [2, WBUF] from the
+// FusedWeights packing w_lr, w_hr.
+int surs_k2_pack_weights(const void* w_lr, const void* w_hr, void* wt,
+                         void* stream) {
+  return (int)launch_pack((const float*)w_lr, (const float*)w_hr, (float*)wt,
+                          (cudaStream_t)stream);
+}
+
+// One layer alone on `stream` (its check): out = leaky([a1 | a2] . W^T +
+// b) for m_tiles x 128 rows and n_out outputs, every operand hi / lo
 // tiles as above (a2 may be null with k2c == 0).
 int surs_tf32x3_gemm(const void* a1_hi, const void* a1_lo, int k1c,
                      const void* a2_hi, const void* a2_lo, int k2c,

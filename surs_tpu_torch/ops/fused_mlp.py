@@ -12,9 +12,10 @@ K2 is the counterpart of ``fused_dual_mlp_train`` (Pallas body
 [xb, mask_a * pred_lr]; both outputs unmasked. Its CUDA source is
 ``csrc/fused_train_tf32.cu``: float32-accurate 3xTF32 on the tensor cores,
 one GEMM kernel launch per layer on operands split into TF32 hi and lo
-parts (``tf32_split``) and tiled (``split_tiles``), and a float32 head;
-``pack_k2`` packs the weights per call, ``fused_dual_mlp_train_tf32x3_ref``
-composes the plain versions of its kernels. Its autograd op
+parts (``tf32_split``) and tiled (``split_tiles``; the weights by a pack
+kernel per call, ``pack_k2``), and a float32 head;
+``fused_dual_mlp_train_tf32x3_ref`` composes the plain versions of its
+kernels. Its autograd op
 (``make_fused_dual_mlp_train_ad``) launches K2 forward and, like the JAX
 custom_vjp, differentiates a recompute of the plain version backward.
 
@@ -303,19 +304,6 @@ K2_XK = 352                     # the input padded to a multiple of 32
 K2_LAYERS = ((1024, K2_XK), (512, 1024), (256, 512 + K2_XK),
              (128, 256 + K2_XK))
 K2_WBUF = sum(2 * n * k for n, k in K2_LAYERS)
-# per MLP, float32 (csrc/fused_train_tf32.cu: V_*): b0..b3, then the
-# last layer's row [w4h (128) | w4x (K2_XK)], then [b4, 0, 0, 0]
-K2_VEC_OFF = {"b0": 0, "b1": 1024, "b2": 1536, "b3": 1792, "w4h": 1920,
-              "w4x": 2048, "b4": 2400}
-K2_VEC = 2404
-
-
-class K2Packed(NamedTuple):
-    """K2's weights: per MLP (lr, hr), layers 0-3 each as its hi tiles
-    then its lo tiles (``split_tiles`` of W_i [N, K], ``K2_LAYERS``), and
-    the float32 vector at ``K2_VEC_OFF``."""
-    w: torch.Tensor     # [2, K2_WBUF] float32
-    vec: torch.Tensor   # [2, K2_VEC] float32
 
 
 def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -374,19 +362,40 @@ def _k2_mats(w: torch.Tensor, b: torch.Tensor, spec: MLPSpec, xk: int):
     return mats
 
 
-def _pack_k2_mlp(mats) -> Tuple[torch.Tensor, torch.Tensor]:
-    w4, b4 = mats[4]
-    return (torch.cat([split_tiles(wt).reshape(-1) for wt, _ in mats[:4]]),
-            torch.cat([b for _, b in mats[:4]] + [w4[0], b4,
-                                                  b4.new_zeros(3)]))
+def pack_k2_ref(fw: FusedWeights) -> torch.Tensor:
+    """Plain version of K2's pack kernel: float32 FusedWeights at the
+    kernel's widths -> [2, K2_WBUF], per MLP (lr, hr) and layer 0-3 the
+    hi tiles then the lo tiles of W [N, K] (``K2_LAYERS``,
+    :func:`split_tiles`). The last layer and the biases stay in ``fw``."""
+    return torch.stack([
+        torch.cat([split_tiles(wt).reshape(-1)
+                   for wt, _ in _k2_mats(w, b, spec, fw.xk)[:4]])
+        for w, b, spec in ((fw.w_lr, fw.b_lr, fw.spec_lr),
+                           (fw.w_hr, fw.b_hr, fw.spec_hr))])
 
 
-def pack_k2(fw: FusedWeights) -> K2Packed:
-    """K2's weights from float32 FusedWeights at the kernel's widths."""
-    lr = _pack_k2_mlp(_k2_mats(fw.w_lr, fw.b_lr, fw.spec_lr, fw.xk))
-    hr = _pack_k2_mlp(_k2_mats(fw.w_hr, fw.b_hr, fw.spec_hr, fw.xk))
-    return K2Packed(torch.stack([lr[0], hr[0]]),
-                    torch.stack([lr[1], hr[1]]))
+def pack_k2(fw: FusedWeights) -> torch.Tensor:
+    """K2's weight tiles alone (:func:`pack_k2_ref`'s function). CUDA
+    tensors launch K2's pack kernel (counted in ``pack_k2.launches``);
+    CPU tensors take :func:`pack_k2_ref`. K2 packs inside its own call;
+    this entry checks the pack kernel."""
+    if fw.w_lr.device.type == "cpu":
+        return pack_k2_ref(fw)
+    _check_kernel_inputs([fw.w_lr], fw)
+    wt = torch.empty((2, K2_WBUF), dtype=torch.float32, device=fw.w_lr.device)
+    lib = _kernel_lib("fused_train_tf32")
+    with torch.cuda.device(wt.device):
+        rc = lib.surs_k2_pack_weights(
+            fw.w_lr.data_ptr(), fw.w_hr.data_ptr(), wt.data_ptr(),
+            torch.cuda.current_stream(wt.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("pack_k2 launch failed: "
+                           + lib.surs_cuda_error_string(rc).decode())
+    pack_k2.launches += 1
+    return wt
+
+
+pack_k2.launches = 0
 
 
 def tf32x3_linear_ref(a_hi, a_lo, w_hi, w_lo, b) -> torch.Tensor:
@@ -453,8 +462,8 @@ def fused_dual_mlp_train(xa: torch.Tensor, xb: torch.Tensor,
     """Train-time dual chain: coarse MLP on ``xa`` [N, dims_lr[0]], fine
     MLP on ``xb`` [N, dims_lr[0]] + (``mask_a`` [N] * coarse prediction).
     Returns (pred_hr [N], pred_lr [N]) float32, both unmasked. CUDA
-    tensors launch kernel K2 (float32 weights, packed per call by
-    :func:`pack_k2`; its 11 kernel launches counted once in
+    tensors launch kernel K2 (float32 weights, tiled per call by its pack
+    kernel; its 12 kernel launches counted once in
     ``fused_dual_mlp_train.launches``); CPU tensors take
     :func:`fused_dual_mlp_train_ref`; anything else raises."""
     C = fw.spec_lr.dims[0]
@@ -474,14 +483,13 @@ def fused_dual_mlp_train(xa: torch.Tensor, xb: torch.Tensor,
     if fw.w_lr.dtype != torch.float32:
         raise ValueError("K2 is built for float32 weights, got "
                          f"{fw.w_lr.dtype}")
-    pk = pack_k2(fw)
+    wt = torch.empty((2, K2_WBUF), dtype=torch.float32, device=dev)
     scratch = torch.empty(k2_scratch_floats(N), dtype=torch.float32,
                           device=dev)
     return _launch(fused_dual_mlp_train, "fused_train_tf32",
                    "surs_fused_dual_mlp_train_tf32x3", fw, (N,),
                    (xa.data_ptr(), xb.data_ptr(), mask_a.data_ptr(), C, N),
-                   weights=(pk.w[0], pk.vec[0], pk.w[1], pk.vec[1],
-                            scratch))
+                   weights=(fw.w_lr, fw.b_lr, fw.w_hr, fw.b_hr, wt, scratch))
 
 
 fused_dual_mlp_train.launches = 0
@@ -1174,7 +1182,8 @@ _SIGNATURES = {
         "surs_fused_dual_mlp_f32": [_P, _I, _P, _I, _I] + _W7,
     },
     "fused_train_tf32": {
-        "surs_fused_dual_mlp_train_tf32x3": [_P, _P, _P, _I, _I] + [_P] * 8,
+        "surs_fused_dual_mlp_train_tf32x3": [_P, _P, _P, _I, _I] + [_P] * 9,
+        "surs_k2_pack_weights": [_P] * 4,
         "surs_tf32x3_gemm": [_P, _P, _I, _P, _P, _I] + [_P] * 5
                             + [_I, _I, _P],
     },

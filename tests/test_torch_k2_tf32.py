@@ -133,28 +133,22 @@ def jax_layer(jw, mlp: int, i: int):
 
 def test_k2_weight_tiles_unpack_to_jax_weights(case):
     *_, fw, jw = case
-    pk = fm.pack_k2(fw)
-    assert tuple(pk.w.shape) == (2, fm.K2_WBUF)
-    assert tuple(pk.vec.shape) == (2, fm.K2_VEC)
-    o = fm.K2_VEC_OFF
+    before = fm.pack_k2.launches
+    wt = fm.pack_k2(fw)                 # the CPU takes pack_k2_ref
+    assert fm.pack_k2.launches == before
+    assert tuple(wt.shape) == (2, fm.K2_WBUF)
     for mlp in range(2):
         off = 0
         for i, (n, k) in enumerate(fm.K2_LAYERS):
-            tiles = pk.w[mlp, off:off + 2 * n * k].view(2, -1)
+            tiles = wt[mlp, off:off + 2 * n * k].view(2, -1)
             off += 2 * n * k
             hi, lo = fm.unsplit_tiles(tiles, n, k)
-            W, b = jax_layer(jw, mlp, i)
+            W, _ = jax_layer(jw, mlp, i)
             want_hi, want_lo = fm.tf32_split(torch.from_numpy(W))
             assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
             np.testing.assert_allclose((hi + lo).numpy(), W, rtol=2.0 ** -21,
                                        atol=0)
-            np.testing.assert_array_equal(
-                pk.vec[mlp, o[f"b{i}"]:o[f"b{i}"] + n].numpy(), b)
-        W4, b4 = jax_layer(jw, mlp, 4)
-        np.testing.assert_array_equal(
-            pk.vec[mlp, o["w4h"]:o["b4"]].numpy(), W4[0])
-        np.testing.assert_array_equal(pk.vec[mlp, o["b4"]:].numpy(),
-                                      [b4[0], 0, 0, 0])
+        assert off == fm.K2_WBUF
 
 
 @pytest.mark.parametrize("n", [1, 127, 129])
