@@ -219,6 +219,13 @@ def time_cuda(fn, reps: int, warm: int = 2) -> float:
     return float(np.median(times))
 
 
+def time_cuda_batch(fn, calls: int = 20, reps: int = 5) -> float:
+    """Milliseconds per call of ``fn`` enqueued ``calls`` times between
+    two CUDA events (median of ``reps``): a kernel shorter than its
+    launch's host time is timed on the card, not on the host."""
+    return time_cuda(lambda: [fn() for _ in range(calls)], reps) / calls
+
+
 KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_train_tf32x3_gemm_kernel",
            "fused_dual_mlp_train_tf32x3_split_kernel",
@@ -380,7 +387,7 @@ def phase_k1():
 def k2_layers(rng):
     """K2's GEMM kernel alone (``tf32x3_linear``) at each layer's shape,
     12,000 rows (94 tiles of 128), against its plain version on the same
-    split operands; ms per layer."""
+    split operands; ms per layer, 20 launches enqueued back to back."""
     import torch
     from surs_tpu_torch.ops import fused_mlp as fm
 
@@ -406,10 +413,10 @@ def k2_layers(rng):
         err = ((hi + lo - want).abs().max() / want.abs().max()).item()
         rec = {"phase": "k2_layer", "layer": i, "rows": rows, "k": k,
                "n": n_out, "max_rel_err": err, "tol": K2_LAYER_TOL,
-               "ms": time_cuda(lambda: fm.tf32x3_linear(a1, a2, wt, b,
-                                                        rows), 20),
-               "plain_ms": time_cuda(lambda: fm.tf32x3_linear_ref(
-                   *sa, *sw, b), 10)}
+               "ms": time_cuda_batch(lambda: fm.tf32x3_linear(
+                   a1, a2, wt, b, rows)),
+               "plain_ms": time_cuda_batch(lambda: fm.tf32x3_linear_ref(
+                   *sa, *sw, b))}
         rec["tf32_tflops"] = 3 * 2.0 * rows * k * n_out / (
             rec["ms"] * 1e-3) / 1e12
         emit(rec)
