@@ -228,6 +228,7 @@ def time_cuda_batch(fn, calls: int = 20, reps: int = 5) -> float:
 
 KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_train_tf32x3_gemm_kernel",
+           "fused_dual_mlp_train_tf32x3_pack_kernel",
            "fused_dual_mlp_train_tf32x3_split_kernel",
            "fused_dual_mlp_train_tf32x3_head_kernel", "cols_terms_bf16_kernel",
            "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_cols_f32_kernel",
