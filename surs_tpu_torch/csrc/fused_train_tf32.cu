@@ -114,7 +114,19 @@ __device__ __forceinline__ size_t tile_off(int m, int k, int kc) {
          ((((k >> 2) & 7) ^ (m & 7)) << 2) + (k & 3);
 }
 
-// v split into hi and lo at the tile offset o (o % 2 == 0 for float2)
+// 4 values split into hi and lo at the tile offset o (o % 4 == 0)
+__device__ __forceinline__ void store_split4(float* hi, float* lo, size_t o,
+                                             const float (&v)[4]) {
+  float4 h, l;
+  h.x = tf32_rna(v[0]); h.y = tf32_rna(v[1]);
+  h.z = tf32_rna(v[2]); h.w = tf32_rna(v[3]);
+  l.x = tf32_rna(v[0] - h.x); l.y = tf32_rna(v[1] - h.y);
+  l.z = tf32_rna(v[2] - h.z); l.w = tf32_rna(v[3] - h.w);
+  *reinterpret_cast<float4*>(hi + o) = h;
+  *reinterpret_cast<float4*>(lo + o) = l;
+}
+
+// 2 values split into hi and lo at the tile offset o (o % 2 == 0)
 __device__ __forceinline__ void store_split2(float* hi, float* lo, size_t o,
                                              float v0, float v1) {
   const float h0 = tf32_rna(v0), h1 = tf32_rna(v1);
@@ -265,15 +277,8 @@ __global__ void __launch_bounds__(PACK_THREADS)
            : kk - L.kh < XK ? __ldg(w + L.wx + (size_t)(kk - L.kh) * L.n + n)
                             : 0.f;
   }
-  float4 h, l;
-  h.x = tf32_rna(v[0]); h.y = tf32_rna(v[1]);
-  h.z = tf32_rna(v[2]); h.w = tf32_rna(v[3]);
-  l.x = tf32_rna(v[0] - h.x); l.y = tf32_rna(v[1] - h.y);
-  l.z = tf32_rna(v[2] - h.z); l.w = tf32_rna(v[3] - h.w);
   float* out = wt + blockIdx.z * WBUF + L.off;
-  const size_t o = tile_off(n, k, L.k / TK);
-  *reinterpret_cast<float4*>(out + o) = h;
-  *reinterpret_cast<float4*>(out + (size_t)L.n * L.k + o) = l;
+  store_split4(out, out + (size_t)L.n * L.k, tile_off(n, k, L.k / TK), v);
 }
 
 // xa and xb (blockIdx.y) [n, w] as hi / lo tiles [mp / 128][KXC][TILE]:
@@ -296,14 +301,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
 #pragma unroll
   for (int e = 0; e < 4; ++e)
     v[e] = m < n && k + e < w ? __ldg(x + (size_t)m * w + k + e) : 0.f;
-  float4 h, l;
-  h.x = tf32_rna(v[0]); h.y = tf32_rna(v[1]);
-  h.z = tf32_rna(v[2]); h.w = tf32_rna(v[3]);
-  l.x = tf32_rna(v[0] - h.x); l.y = tf32_rna(v[1] - h.y);
-  l.z = tf32_rna(v[2] - h.z); l.w = tf32_rna(v[3] - h.w);
-  const size_t o = tile_off(m, k, KXC);
-  *reinterpret_cast<float4*>(hi + o) = h;
-  *reinterpret_cast<float4*>(lo + o) = l;
+  store_split4(hi, lo, tile_off(m, k, KXC), v);
 }
 
 struct HeadArgs {

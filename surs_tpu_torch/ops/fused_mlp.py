@@ -314,8 +314,9 @@ def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     def rna(t):
         bits = t.contiguous().view(torch.int32)
         return ((bits + 0x1000) & -0x2000).view(torch.float32)
-    hi = rna(v.float())
-    return hi, rna(v.float() - hi)
+    v = v.float()
+    hi = rna(v)
+    return hi, rna(v - hi)
 
 
 @functools.lru_cache(maxsize=16)
