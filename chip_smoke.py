@@ -10,9 +10,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               nvcc per source, in parallel), with ptxas' registers, spills
               and warnings per kernel and, where the toolkit has
               cuobjdump, the HGMMA count of each kernel's SASS; the bf16
-              K1/K3/K4 kernels and K2's 3xTF32 GEMM must not spill, and
-              those wgmma kernels must hold HGMMA that ptxas did not
-              serialize (its C7511 report).
+              K1/K3/K4 kernels, K2's 3xTF32 GEMM and K5's four kernels
+              must not spill, and the wgmma kernels must hold HGMMA that
+              ptxas did not serialize (its C7511 report).
   2. k1:      kernel K1 (fused dual MLP) against its plain PyTorch version
               on the card, at the serving shapes (N = 50,000 and a ragged
               49,999; in bf16 also 257, 129, 127 and 1, the ragged edges
@@ -46,16 +46,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
               with its pre-pass alone.
   6. k5:      kernel K5 (row gather, variants vec and loop) against its
               plain version, bit for bit, at the gather probe's shape
-              (49,152 rows of a [16384, 256] bf16 map), a ragged 49,151
-              and 64-channel rows (the hr map's) in bf16 and float32, and
-              indices outside the map (rows of zeros); each variant,
+              (49,152 rows of a [16384, 256] bf16 map), a ragged 49,151,
+              1 and loop's tile - 1 and + 1, 64-channel rows (the hr
+              map's) in bf16 and float32, 200- and 2,048-channel rows,
+              and indices outside the map (rows of zeros), among them a
+              whole tile, also on grids of 1 and 3 blocks; each variant,
               torch.index_select and the plain version timed per launch
-              with L2 cold (and warm), with the bound; then the port's
-              gather probe (surs_tpu_torch.probes.vmem_gather_probe), its
-              lines passed on, K5's launch count zeroed just before and
-              read just after; and, for information, one tap of the
-              serving gather (the full-width service's lr map from
-              encode, 50,000 random rows) through K5 and through PyTorch.
+              with L2 cold, cold with clean lines (probes/k5_times.py)
+              and warm, with the bound and the launch plans; then the
+              port's gather probe (surs_tpu_torch.probes.
+              vmem_gather_probe), its lines passed on, K5's launch count
+              zeroed just before and read just after; and, for
+              information, one tap of the serving gather (the full-width
+              service's lr map from encode, 50,000 random rows) through
+              K5 and through PyTorch.
   7. serve:   SuRSService at the reference model's full width (loadSize
               512, hg_dim 256, 3 lr stacks, the reference MLPs; seeded
               random weights) reconstructs 3 synthetic subjects at 512^3
@@ -190,12 +194,6 @@ F32_SERVICE_TOL = 1e-4
 # K5: a gather copies bits, so it must equal its plain version exactly;
 # its checks add rows of 64 channels (the hr map's 128-byte bf16 rows)
 K5_HR_CHANNELS = 64
-# L2-cold timing: a buffer over twice the card's 50 MB L2, written before
-# each timed launch
-FLUSH_BYTES = 256 << 20
-# clock cycles the card spins before one cold launch (about 1 ms), so the
-# host has enqueued the launch when the card reaches it
-COLD_HOLD_CYCLES = 2_000_000
 
 
 def emit(obj) -> None:
@@ -226,6 +224,9 @@ def time_cuda_batch(fn, calls: int = 20, reps: int = 5) -> float:
     return time_cuda(lambda: [fn() for _ in range(calls)], reps) / calls
 
 
+# K5's four kernels, which must not spill either
+K5_KERNELS = ("row_gather_vec_bf16_kernel", "row_gather_vec_f32_kernel",
+              "row_gather_loop_bf16_kernel", "row_gather_loop_f32_kernel")
 KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_train_tf32x3_gemm_kernel",
            "fused_dual_mlp_train_tf32x3_pack_kernel",
@@ -233,8 +234,7 @@ KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_train_tf32x3_head_kernel", "cols_terms_bf16_kernel",
            "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_cols_f32_kernel",
            "fused_dual_mlp_runs_wgmma_kernel", "fused_dual_mlp_runs_f32_kernel",
-           "row_gather_vec_bf16_kernel", "row_gather_vec_f32_kernel",
-           "row_gather_loop_bf16_kernel", "row_gather_loop_f32_kernel")
+           ) + K5_KERNELS
 SOURCES = ("fused_dual_mlp", "fused_train_tf32", "fused_cols_mlp",
            "row_gather")
 # the bf16 K1/K3/K4 chain kernels and K2's 3xTF32 GEMM, whose SASS must
@@ -312,8 +312,9 @@ def phase_build():
         raise AssertionError(f"no ptxas report for {missing}")
     spills = {k: v for k, v in ptxas.items()
               if v.get("spill_stores") or v.get("spill_loads")}
-    if any(k in spills for k in WGMMA_KERNELS + ("cols_terms_bf16_kernel",)):
-        raise AssertionError(f"a wgmma kernel or the pre-pass spills: "
+    if any(k in spills for k in WGMMA_KERNELS + K5_KERNELS
+           + ("cols_terms_bf16_kernel",)):
+        raise AssertionError(f"a wgmma kernel, the pre-pass or K5 spills: "
                              f"{spills}")
     if any(k in serialized for k in WGMMA_KERNELS):
         raise AssertionError(f"ptxas serialized the wgmma of {serialized}")
@@ -693,50 +694,11 @@ def phase_k4():
     return {"checks": recs, "main": main}
 
 
-def time_cold(fn, reps: int, flush) -> float:
-    """Median milliseconds of one launch of ``fn`` with L2 cold: ``flush``
-    (larger than the L2) is written before each launch, and the events
-    time the launch alone."""
-    import torch
-    from surs_tpu_torch.probes.vmem_gather_probe import hold_card
-    fn()
-    pairs = []
-    for _ in range(reps):
-        flush.zero_()
-        hold_card(COLD_HOLD_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+def check_gather(feat, idx, want, grids=(None,)):
+    """Both K5 variants against ``want``, bit for bit: on the default
+    launch (None) and on each of ``grids`` blocks."""
+    import dataclasses
 
-
-def time_warm(fn, reps: int = 50, repeats: int = 3) -> float:
-    """Milliseconds per launch of ``reps`` launches of ``fn`` back to
-    back (L2 warm), best of ``repeats``; the card is held while the host
-    enqueues them, so the events time the card's work."""
-    import torch
-    from surs_tpu_torch.probes.vmem_gather_probe import hold_card
-    fn()
-    best = float("inf")
-    for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        hold_card()
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        best = min(best, a.elapsed_time(b) / reps)
-    return best
-
-
-def check_gather(feat, idx, want):
-    """Both K5 variants against ``want``, bit for bit."""
     import torch
     from surs_tpu_torch.ops import row_gather as rg
 
@@ -746,15 +708,21 @@ def check_gather(feat, idx, want):
            "n": idx.shape[0]}
     ok = True
     for variant in rg.VARIANTS:
-        out = rg.row_gather(feat, idx, variant)
-        torch.cuda.synchronize()
-        same = (out.shape == want.shape and out.dtype == want.dtype
-                and torch.equal(out.view(int_view), want.view(int_view)))
-        rec[f"{variant}_equal"] = bool(same)
-        rec[f"{variant}_max_abs_err"] = (
-            (out.float() - want.float()).abs().max().item() if same
-            else float("inf"))
-        ok = ok and same
+        for grid in grids:
+            plan, key = None, variant
+            if grid is not None:
+                plan = dataclasses.replace(
+                    rg.device_plan(feat, idx.shape[0], variant), grid=grid)
+                key = f"{variant}_grid{grid}"
+            out = rg.row_gather(feat, idx, variant, plan)
+            torch.cuda.synchronize()
+            same = (out.shape == want.shape and out.dtype == want.dtype
+                    and torch.equal(out.view(int_view), want.view(int_view)))
+            rec[f"{key}_equal"] = bool(same)
+            rec[f"{key}_max_abs_err"] = (
+                (out.float() - want.float()).abs().max().item() if same
+                else float("inf"))
+            ok = ok and same
     emit(rec)
     if not ok:
         raise AssertionError(f"K5 disagrees with its plain version: {rec}")
@@ -762,23 +730,29 @@ def check_gather(feat, idx, want):
 
 
 def phase_k5(subjects, device: str = "cuda"):
-    """K5 against its plain version, exactly; its cold and warm times
-    beside torch.index_select's and the bound; the gather probe as K5's
-    main path; one tap of the serving gather."""
+    """K5 against its plain version, exactly; its cold, clean-cold and
+    warm times beside torch.index_select's and the bound; the gather
+    probe as K5's main path; one tap of the serving gather."""
     import torch
     from surs_tpu_torch import roofline
     from surs_tpu_torch.ops import row_gather as rg
+    from surs_tpu_torch.probes import k5_times
     from surs_tpu_torch.probes import vmem_gather_probe as probe
     from surs_tpu_torch.serve import SuRSService, normalize_image
 
     rows = probe.H * probe.W
     rng = np.random.default_rng(SEED + 4)
+    # the edges of loop's tile and of vec's 32-row batch at the probe's rows
+    tile = rg.loop_tile(probe.C * 2)[0]
     checks = []
-    # the probe's shape, a ragged count, the hr map's rows; then rows of
-    # 25 vectors (lanes idle in each block pass) and of 8 KB (one row
-    # over several passes of a block, a sub-tile of 4 rows in loop)
+    # the probe's shape, a ragged count, a tile and less, the hr map's
+    # rows; then rows of 25 vectors (batches that straddle rows) and of
+    # 8 KB (a tile of 2 rows in loop, 16 rounds a lane in vec)
     for n, c, dtype in ((probe.N, probe.C, torch.bfloat16),
                         (probe.N - 1, probe.C, torch.bfloat16),
+                        (1, probe.C, torch.bfloat16),
+                        (tile - 1, probe.C, torch.bfloat16),
+                        (tile + 1, probe.C, torch.bfloat16),
                         (probe.N, K5_HR_CHANNELS, torch.bfloat16),
                         (probe.N, K5_HR_CHANNELS, torch.float32),
                         (4099, 200, torch.bfloat16),
@@ -788,30 +762,42 @@ def phase_k5(subjects, device: str = "cuda"):
         idx = torch.from_numpy(rng.integers(0, rows, n).astype(
             np.int32)).to(device)
         checks.append(check_gather(feat, idx, rg.row_gather_ref(feat, idx)))
-    # indices outside [0, rows) give rows of zeros
-    idx = torch.tensor([0, -1, rows, rows - 1, -2 ** 31, 2 ** 31 - 1],
-                       dtype=torch.int32, device=device)
-    inside = ((idx >= 0) & (idx < rows))[:, None]
-    rows_at = feat[idx.clamp(0, rows - 1).long()]
-    checks.append(check_gather(feat, idx, torch.where(
-        inside, rows_at, torch.zeros_like(rows_at))))
+    # indices outside [0, rows) give rows of zeros: a few among rows in
+    # range (the last map's 8 KB float32 rows); in the probe's map a tile
+    # of them alone, and at the probe's count the second and the last
+    # tile (and vec batch) of them, also on 1 and 3 blocks (hundreds of
+    # tiles or batches a block: the loop ring's phases wrap)
+    outside = np.array([-1, rows, -2 ** 31, 2 ** 31 - 1, rows + 7, -rows])
+    mixed = rng.integers(0, rows, probe.N)
+    mixed[tile:2 * tile] = np.resize(outside, tile)
+    mixed[-tile:] = np.resize(outside, tile)
+    feat_probe, idx_probe = probe.probe_inputs(device)
+    for f, case, grids in ((feat, [0, -1, rows, rows - 1, -2 ** 31,
+                                   2 ** 31 - 1], (None,)),
+                           (feat_probe, np.resize(outside, tile), (None,)),
+                           (feat_probe, mixed, (None, 1, 3))):
+        idx = torch.from_numpy(np.asarray(case).astype(np.int32)).to(device)
+        inside = ((idx >= 0) & (idx < rows))[:, None]
+        rows_at = f[idx.clamp(0, rows - 1).long()]
+        checks.append(check_gather(f, idx, torch.where(
+            inside, rows_at, torch.zeros_like(rows_at)), grids))
 
-    # per launch at the probe's shape, L2 cold (the bound's case) and warm
-    feat, idx = probe.probe_inputs(device)
+    # per launch at the probe's shape: L2 cold (the bound's case), cold
+    # with clean lines in L2, and warm
+    feat, idx = feat_probe, idx_probe
     fns = {"vec": lambda: rg.row_gather(feat, idx, "vec"),
            "loop": lambda: rg.row_gather(feat, idx, "loop"),
            "index_select": lambda: torch.index_select(feat, 0, idx),
            "plain": lambda: rg.row_gather_ref(feat, idx)}
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
     flops, nbytes = roofline.k5_work(rows, probe.N, probe.C)
     b_ms, b_by = roofline.bound(flops, nbytes, "bfloat16")
     timing = {"phase": "k5_time", "rows": rows, "channels": probe.C,
               "n": probe.N, "dtype": "bfloat16",
-              "cold_ms": {k: time_cold(f, 20, flush) for k, f in fns.items()},
-              "warm_ms": {k: time_warm(f) for k, f in fns.items()},
+              "plans": {v: vars(rg.device_plan(feat, probe.N, v))
+                        for v in rg.VARIANTS},
+              **k5_times.measure(fns),
               "bound_ms": b_ms, "bound_by": b_by, "mbytes": nbytes / 1e6}
     emit(timing)
-    del flush
 
     # the probe: K5's main path
     torch.cuda.synchronize()
@@ -841,11 +827,14 @@ def phase_k5(subjects, device: str = "cuda"):
            "dtype": str(flat.dtype).replace("torch.", ""), "n": N_MAIN,
            "equal": bool(torch.equal(got, want)),
            "warm_ms": {
-               "vec": time_warm(lambda: rg.row_gather(flat, tidx, "vec")),
-               "loop": time_warm(lambda: rg.row_gather(flat, tidx, "loop")),
-               "index_select": time_warm(
+               "vec": k5_times.time_warm(
+                   lambda: rg.row_gather(flat, tidx, "vec")),
+               "loop": k5_times.time_warm(
+                   lambda: rg.row_gather(flat, tidx, "loop")),
+               "index_select": k5_times.time_warm(
                    lambda: torch.index_select(flat, 0, tidx)),
-               "serving_index": time_warm(lambda: flat3[bidx, idx64])}}
+               "serving_index": k5_times.time_warm(
+                   lambda: flat3[bidx, idx64])}}
     emit(tap)
     del service, feats_lr, lr, flat, flat3
     torch.cuda.empty_cache()
@@ -1617,10 +1606,15 @@ def main() -> int:
         "max_abs_err": max(r[f"{v}_max_abs_err"] for r in k5["checks"]
                            for v in ("vec", "loop")),
         "ms": k5["timing"]["cold_ms"]["vec"],
+        "cold_clean_ms": k5["timing"]["cold_clean_ms"]["vec"],
+        "loop_ms": k5["timing"]["cold_ms"]["loop"],
+        "loop_cold_clean_ms": k5["timing"]["cold_clean_ms"]["loop"],
         "plain_ms": k5["timing"]["cold_ms"]["plain"],
         "bound_ms": k5["timing"]["bound_ms"],
         "bound_by": k5["timing"]["bound_by"],
         "library_ms": k5["timing"]["cold_ms"]["index_select"],
+        "library_cold_clean_ms":
+            k5["timing"]["cold_clean_ms"]["index_select"],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

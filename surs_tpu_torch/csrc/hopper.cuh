@@ -1,11 +1,11 @@
 // Hopper (sm_90a) primitives for the bf16 chain kernels (K1 in
-// fused_dual_mlp.cu, K3/K4 in fused_cols_mlp.cu) and K2's TF32 GEMM
-// (fused_train_tf32.cu): mbarriers, bulk copies from global to shared
-// memory, cp.async, the warpgroup MMA (wgmma) m64n128k16 bf16 -> float32
-// with A from registers or from shared memory, m64n128k8 tf32 and
-// m64n64k16 bf16 with both from shared memory, its shared-memory
-// descriptor, and mma.sync m16n8k16. Inline PTX only: no tensor maps, no
-// -lcuda.
+// fused_dual_mlp.cu, K3/K4 in fused_cols_mlp.cu), K2's TF32 GEMM
+// (fused_train_tf32.cu) and K5's loop variant (row_gather.cu): mbarriers,
+// bulk copies from global to shared memory and back, cp.async, the
+// warpgroup MMA (wgmma) m64n128k16 bf16 -> float32 with A from registers
+// or from shared memory, m64n128k8 tf32 and m64n64k16 bf16 with both from
+// shared memory, its shared-memory descriptor, and mma.sync m16n8k16.
+// Inline PTX only: no tensor maps, no -lcuda.
 
 #pragma once
 
@@ -68,6 +68,30 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from shared
+// to global memory, in the thread's current bulk async-group
+__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src,
+                                         uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's bulk async-groups still read
+// their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// wait until all of this thread's bulk async-groups have completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // --------------------------------------------------------------- cp.async --

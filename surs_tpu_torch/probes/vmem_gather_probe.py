@@ -33,12 +33,12 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..ops.row_gather import LOOP_BLOCK, row_gather, row_gather_ref
+from ..ops.row_gather import device_plan, row_gather, row_gather_ref
 
 H = W = 128
 C = 256
 N = 49152          # 96 blocks of 512
-BLOCK = LOOP_BLOCK
+BLOCK = 512        # the TPU probe's index block; K5 plans its own grid
 DTYPE = torch.bfloat16
 VARIANTS = ("vec", "loop", "index_select")
 ITERS = 20
@@ -117,9 +117,9 @@ def main(device=None):
                "device": name_of_device,
                "rows": H * W, "channels": C, "n": N, "dtype": "bfloat16",
                "correct": bool(torch.equal(out, ref))}
-        if name == "loop":
-            rec["block"] = BLOCK
         if on_card:
+            if name in ("vec", "loop"):
+                rec["plan"] = vars(device_plan(feat, N, name))
             rec["first_s"] = time.perf_counter() - t0
             rec["steady_ms"], rec["chain_sum"] = chain_ms(fn, feat, idx)
         print(json.dumps(rec), flush=True)

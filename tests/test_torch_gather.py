@@ -83,6 +83,37 @@ def test_gather_matches_jax_probe(jprobe, size, dtype):
     assert rg.row_gather.launches == 0
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("variant", rg.VARIANTS)
+def test_kernel_order_matches_jax_probe(jprobe, variant, dtype):
+    """K5's plain version in the kernel's order (row_gather_tiled_ref,
+    on the card's grid and on 1 SM of 3 blocks) against the JAX probe's
+    Pallas body of the same name, bit for bit: at the small shape and at
+    ragged counts n = 1, T - 1 and T + 1 around loop's tile T (the JAX
+    probe's BLOCK set to n: one grid step)."""
+    shape = SHAPES["small"]
+    for name in ("H", "W", "C"):
+        setattr(jprobe, name, shape[name])
+    jprobe.DTYPE = getattr(jnp, dtype)
+    rows = shape["H"] * shape["W"]
+    rng = np.random.default_rng(11)
+    f32 = rng.standard_normal((rows, shape["C"])).astype(np.float32)
+    jfeat = jnp.asarray(f32, jprobe.DTYPE)
+    tfeat = torch.from_numpy(f32).to(getattr(torch, dtype))
+    row_bytes = shape["C"] * tfeat.element_size()
+    tile = rg.loop_tile(row_bytes)[0]
+    for n in (shape["N"], 1, tile - 1, tile + 1):
+        idx = rng.integers(0, rows, n).astype(np.int32)
+        jprobe.N = n
+        jprobe.BLOCK = 512 if n % 512 == 0 else n
+        want = jprobe.build(variant)(jfeat, jnp.asarray(idx))
+        assert want.shape == (n, shape["C"])
+        for sms, occupancy in ((132, 3), (1, 3)):
+            plan = rg.row_gather_plan(n, row_bytes, variant, sms, occupancy)
+            got = rg.row_gather_tiled_ref(tfeat, torch.from_numpy(idx), plan)
+            np.testing.assert_array_equal(bits(got), bits(want))
+
+
 def test_probe_constants_and_inputs_match_jax_probe(jprobe):
     for name in ("H", "W", "C", "N", "BLOCK"):
         assert getattr(tprobe, name) == getattr(jprobe, name), name
