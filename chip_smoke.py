@@ -6,8 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
   1. build:   compile every CUDA kernel (K1, K2, K3 and K4 together, K5:
-              four sources) with nvcc from the repository's sources (one
-              nvcc per source, in parallel), with ptxas' registers, spills
+              four sources) with nvcc and the host OBJ library with g++
+              from the repository's sources (one compiler per source, in
+              parallel), with ptxas' registers, spills
               and warnings per kernel and, where the toolkit has
               cuobjdump, the HGMMA count of each kernel's SASS; the bf16
               K1/K3/K4 kernels, K2's 3xTF32 GEMM and K5's four kernels
@@ -71,11 +72,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
               service on the card against the same service on the CPU.
   9. stages:  one subject's time by stage (encode, evaluate, extract,
               write).
- 9b. cli:     whether PIL imports here; then the CLI (surs_tpu_torch's
+ 9b. native_io: the host OBJ library (csrc/mesh_native.cpp, built with
+              g++ in the build phase; its seconds) writes the serve
+              phase's HR mesh of subject 0; the plain numpy writer writes
+              it too, and the bytes must be equal (both timed); the file
+              read back (timed) must give the vertices rounded to 4
+              decimals and the written winding.
+ 9c. cli:     whether PIL imports here; then the CLI (surs_tpu_torch's
               main(), ``--once``) serves one PNG image + mask pair at 128^3
               on the card at full width with PIL hidden, so it decodes the
               PNGs itself; K1's launch count zeroed just before and read
               just after (> 0), both OBJ files non-empty.
+ 9d. eval:    the eval CLI (``surs_tpu_torch.apps.eval_surs.main``) at
+              full width and 512^3 on a folder of two PNG pairs
+              (image_final/, mask_final/), PIL hidden, loading a
+              reference-style state dict synthesized from
+              tests/fixtures/ref_netG_state_spec.json with SEED; K1's
+              launch count zeroed just before and read just after (> 0),
+              both OBJ pairs non-empty, every tensor of the model
+              imported; seconds and OBJ-write seconds per subject. Then a
+              float32 service loaded from that file and one given the
+              same weights through params= give the same fields at
+              128^3.
  10. dense:   SuRSService(use_octree=False) serves one subject at 512^3
               through K3 (K3's and K1's launch counts zeroed just before
               and read just after: K3 > 0, K1 = 0), with its time by
@@ -138,6 +156,16 @@ K1_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
 K1_RAGGED = (257, 129, 127, 1)
 # the CLI phase's grid
 CLI_RESOLUTION = 128
+# the eval phase: subjects, the checkpoint's spec (the reference's netG
+# keys and shapes at the README config), and the float32 services loaded
+# from the file and through params= (the same weights, the same card and
+# shapes, so the same kernels: equal up to a nondeterministic cuDNN
+# algorithm's summation order)
+EVAL_SUBJECTS = 2
+EVAL_RESOLUTION = 512
+REF_SPEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "ref_netG_state_spec.json")
+CKPT_TOL = 1e-5
 # K2 against its plain version, float32 weights and inputs: 3xTF32 keeps
 # each product to about 2^-21 relative (lo.lo dropped, each split 2^-22),
 # at float32 FMA's level, and sums in another order; on outputs in [0, 1]
@@ -235,8 +263,10 @@ KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_cols_f32_kernel",
            "fused_dual_mlp_runs_wgmma_kernel", "fused_dual_mlp_runs_f32_kernel",
            ) + K5_KERNELS
+# the kernel sources, and the host library of the OBJ writer and reader
+# (csrc/mesh_native.cpp, built with g++ beside them)
 SOURCES = ("fused_dual_mlp", "fused_train_tf32", "fused_cols_mlp",
-           "row_gather")
+           "row_gather", "mesh_native")
 # the bf16 K1/K3/K4 chain kernels and K2's 3xTF32 GEMM, whose SASS must
 # hold warpgroup MMAs
 WGMMA_KERNELS = ("fused_dual_mlp_wgmma_kernel",
@@ -303,7 +333,8 @@ def phase_build():
              **sass_hgmma(libs["fused_train_tf32"]),
              **sass_hgmma(libs["fused_cols_mlp"])}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": {k: v[0] for k, v in cuda_build.BUILD_LOG.items()},
+          "compile_seconds": {k: v[0]
+                              for k, v in cuda_build.BUILD_LOG.items()},
           "ptxas": ptxas, "ptxas_warnings": warnings,
           "wgmma_serialized": serialized,
           "sass_hgmma": hgmma or "no cuobjdump"})
@@ -862,6 +893,18 @@ def full_width_config(**kw):
     return SuRSConfig(**{**base, **kw})
 
 
+def cli_args(cfg) -> list:
+    """The command-line flags that give ``cfg``'s model and grid."""
+    return ["--loadSize", str(cfg.loadSize), "--hg_dim", str(cfg.hg_dim),
+            "--num_stack_lr", str(cfg.num_stack_lr),
+            "--resolution", str(cfg.resolution),
+            "--octree_init_resolution", str(cfg.octree_init_resolution),
+            "--num_samples", str(cfg.num_samples),
+            "--b_min", *map(str, cfg.b_min), "--b_max", *map(str, cfg.b_max),
+            "--seed", str(cfg.seed)] + (["--residual"] if cfg.residual
+                                        else [])
+
+
 def clear_objs(out_dir: str) -> None:
     """Drop the phase's OBJ files (hundreds of MB at 512^3)."""
     for f in os.listdir(out_dir):
@@ -891,6 +934,7 @@ def phase_serve(out_dir: str):
                                          stats=stats)
         per.append({"seconds": time.perf_counter() - t1,
                     "queries": stats["queries"],
+                    "write_s": stats["write_s"],
                     "faces_hr": stats["faces"][0],
                     "faces_lr": stats["faces"][1],
                     "obj_bytes": [os.path.getsize(p_hr),
@@ -1003,6 +1047,55 @@ def phase_stages(service, subjects, out_dir: str, phase: str = "stages"):
     return rec
 
 
+def phase_native_io(service, subjects, out_dir: str):
+    """The host OBJ library on the serve phase's HR mesh (subject 0):
+    its build seconds, the native write against the plain numpy writer
+    (the same bytes; both timed), and the native read back (timed), equal
+    to the vertices rounded to 4 decimals and the written winding."""
+    from surs_tpu_torch.ops import cuda_build
+    from surs_tpu_torch.recon.grid import grid_matrix
+    from surs_tpu_torch.recon.mesh_io import (load_obj, save_obj_mesh,
+                                              save_obj_mesh_ref)
+
+    sdf_hr, sdf_lr = service.fields(*subjects[0])
+    cfg = service.cfg
+    mat = grid_matrix((cfg.resolution,) * 3, cfg.b_min, cfg.b_max)
+    verts, faces = next(service.rec.extract_pair(sdf_hr, sdf_lr, mat))
+    del sdf_hr, sdf_lr
+    paths = [os.path.join(out_dir, f"native_io_{k}.obj")
+             for k in ("native", "ref")]
+    t0 = time.perf_counter()
+    save_obj_mesh(paths[0], verts, faces)
+    t1 = time.perf_counter()
+    save_obj_mesh_ref(paths[1], verts, faces)
+    t2 = time.perf_counter()
+    with open(paths[0], "rb") as f:
+        native = f.read()
+    with open(paths[1], "rb") as f:
+        same = native == f.read()
+    t3 = time.perf_counter()
+    got_v, got_f = load_obj(paths[0])
+    read_s = time.perf_counter() - t3
+    v = verts.astype(np.float64)
+    want_v = (np.where(v < 0, -1, 1) * np.floor(np.abs(v) * 1e4 + 0.5)
+              / 1e4).astype(np.float32)
+    round_trip = (got_v.shape == want_v.shape and got_f.shape == faces.shape
+                  and bool((got_v == want_v).all())
+                  and bool((got_f == faces[:, [0, 2, 1]]).all()))
+    rec = {"phase": "native_io",
+           "build_s": cuda_build.BUILD_LOG["mesh_native"][0],
+           "verts": len(verts), "faces": len(faces), "bytes": len(native),
+           "native_write_s": t1 - t0, "ref_write_s": t2 - t1,
+           "native_read_s": read_s, "bytes_equal": same,
+           "round_trip_4_decimals": round_trip}
+    emit(rec)
+    for p in paths:
+        os.remove(p)
+    if not (same and round_trip and len(faces) > 0):
+        raise AssertionError(f"native_io failed: {rec}")
+    return rec
+
+
 def write_png(path: str, img) -> None:
     """[H, W] or [H, W, 3] uint8 -> an 8-bit gray or RGB PNG, every row
     unfiltered (the standard library alone: PIL may be absent)."""
@@ -1074,6 +1167,126 @@ def phase_cli(out_dir: str):
             os.remove(p)
     if launches <= 0 or not all(sizes):
         raise AssertionError(f"cli failed: {rec}")
+    return rec
+
+
+def reference_state_dict(seed: int = SEED, scale: float = 0.05):
+    """A reference-style netG state dict at the README config (every key
+    and shape of ``tests/fixtures/ref_netG_state_spec.json``), zero-mean
+    seeded weights."""
+    import torch
+    with open(REF_SPEC) as f:
+        spec = json.load(f)
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32) * scale)
+        for k, shape in spec.items()}
+
+
+def phase_eval(out_dir: str):
+    """The eval CLI (surs_tpu_torch.apps.eval_surs.main) at full width
+    and 512^3 on a folder of two PNG pairs, PIL hidden, loading a
+    reference-style checkpoint; then a float32 service loaded from that
+    file against one given the same weights through params=."""
+    import contextlib
+    import io
+
+    import torch
+    from surs_tpu_torch.apps.eval_surs import main
+    from surs_tpu_torch.compat.torch_import import reference_to_flax
+    from surs_tpu_torch.ops.fused_mlp import fused_dual_mlp
+    from surs_tpu_torch.recon import pipeline
+    from surs_tpu_torch.serve import SuRSService
+
+    root = os.path.join(out_dir, "eval_in")
+    for sub in ("image_final", "mask_final"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(EVAL_SUBJECTS):
+        img, mask = synthetic_subject(i)
+        write_png(os.path.join(root, "image_final", f"subject{i}.png"), img)
+        write_png(os.path.join(root, "mask_final", f"subject{i}.png"), mask)
+    sd = reference_state_dict()
+    ckpt = os.path.join(out_dir, "ref_netG")
+    torch.save(sd, ckpt)
+    cfg = full_width_config(resolution=EVAL_RESOLUTION, residual=True)
+    args = ["--dataroot", root, "--name", "eval", *cli_args(cfg),
+            "--load_netG_checkpoint_path", ckpt, "--results_path", out_dir]
+    # time each subject; its stats carry the OBJ writes' seconds
+    per, gen_mesh = [], pipeline.Reconstructor.gen_mesh
+
+    def timed(self, cfg, data, save_path, stats=None):
+        st = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        paths = gen_mesh(self, cfg, data, save_path, st)
+        torch.cuda.synchronize()
+        per.append({"seconds": time.perf_counter() - t,
+                    "write_s": st["write_s"], "mode": st["mode"],
+                    "queries": st["queries"], "faces": st["faces"],
+                    "obj_bytes": [os.path.getsize(p) for p in paths]})
+        return paths
+
+    log = io.StringIO()
+    saved = sys.modules.get("PIL", False)
+    sys.modules["PIL"] = None            # the CLI decodes the PNGs itself
+    pipeline.Reconstructor.gen_mesh = timed
+    try:
+        torch.cuda.synchronize()
+        fused_dual_mlp.launches = 0          # the eval path starts here
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = fused_dual_mlp.launches   # the eval path ends here
+    finally:
+        pipeline.Reconstructor.gen_mesh = gen_mesh
+        if saved is False:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = saved
+    text = log.getvalue()
+    m = re.search(r"imported (\d+) tensors from torch checkpoint", text)
+    imported = int(m.group(1)) if m else 0
+    saved_lines = text.count("\nsaved ")
+    clear_objs(os.path.join(out_dir, "eval"))
+    torch.cuda.empty_cache()
+    # float32 at full width, 128^3: loaded from the file against the same
+    # weights given as a Flax tree
+    f32 = dict(resolution=min(CLI_RESOLUTION, EVAL_RESOLUTION),
+               dtype="float32", feature_dtype="float32", residual=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        from_file = SuRSService(full_width_config(
+            load_netG_checkpoint_path=ckpt, **f32))
+        tree, n_tree = reference_to_flax(sd, from_file.model)
+        from_params = SuRSService(full_width_config(**f32), params=tree)
+    img, mask = synthetic_subject(0)
+    a = from_file.fields(img, mask)
+    b = from_params.fields(img, mask)
+    err = max((x - y).abs().max().item() for x, y in zip(a, b))
+    lr_range = [a[1].min().item(), a[1].max().item()]
+    n_model = len(from_file.model.state_dict())
+    del from_file, from_params, a, b
+    torch.cuda.empty_cache()
+    rec = {"phase": "eval", "resolution": EVAL_RESOLUTION,
+           "subjects": EVAL_SUBJECTS,
+           "seconds": seconds, "k1_launches": launches, "requests": per,
+           "seconds_per_subject": float(np.mean([r["seconds"]
+                                                 for r in per])),
+           "write_s_per_subject": float(np.mean([r["write_s"]
+                                                 for r in per])),
+           "imported_tensors": imported, "model_tensors": n_model,
+           "saved_lines": saved_lines,
+           "f32_file_vs_params": err, "f32_tol": CKPT_TOL,
+           "f32_resolution": f32["resolution"],
+           "f32_field_lr_range": lr_range}
+    emit(rec)
+    if not (launches > 0 and len(per) == EVAL_SUBJECTS
+            and saved_lines == EVAL_SUBJECTS
+            and all(min(r["obj_bytes"]) > 0 and min(r["faces"]) > 0
+                    for r in per)
+            and imported == n_tree == n_model and err <= CKPT_TOL):
+        raise AssertionError(f"eval failed: {rec}")
     return rec
 
 
@@ -1488,7 +1701,8 @@ def phase_serve_profile(subjects, repeats: int = 4):
 
 
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "serve", "check",
-          "stages", "cli", "dense", "runs", "train", "train_check")
+          "stages", "native_io", "cli", "eval", "dense", "runs", "train",
+          "train_check")
 # run only when named in --phases
 EXTRA_PHASES = ("train_profile", "serve_profile")
 
@@ -1521,11 +1735,15 @@ def main() -> int:
                 phase_check(service, subjects)
             if "stages" in phases:
                 phase_stages(service, subjects, out_dir)
+            if "native_io" in phases:
+                phase_native_io(service, subjects, out_dir)
             del service
             clear_objs(out_dir)
             torch.cuda.empty_cache()
         if "cli" in phases:
             phase_cli(out_dir)
+        if "eval" in phases:
+            phase_eval(out_dir)
         if "serve_profile" in phases:
             phase_serve_profile(subjects)
         if "dense" in phases:

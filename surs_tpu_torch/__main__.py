@@ -20,7 +20,7 @@ import time
 
 
 def main(argv=None):
-    from .config import SuRSConfig, build_parser
+    from .config import build_parser, config_from_args
     from .data.png import load_gray, load_rgb
     from .serve import SuRSService
 
@@ -30,8 +30,7 @@ def main(argv=None):
     parser.add_argument("--poll_sec", type=float, default=1.0)
     parser.add_argument("--device", default=None)
     args = parser.parse_args(argv)
-    cfg = SuRSConfig(**{k: v for k, v in vars(args).items()
-                        if k in SuRSConfig.__dataclass_fields__}).validate()
+    cfg = config_from_args(args)
     service = SuRSService(cfg, device=args.device)
     out_dir = os.path.join(cfg.results_path, cfg.name)
     done = set()

@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -272,3 +272,30 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument(name, type=type(default), default=default)
     return p
 
+
+def config_from_args(args: argparse.Namespace) -> SuRSConfig:
+    """The config of a parsed command line; arguments that are not
+    config fields (an entry point's own flags) are left out."""
+    return SuRSConfig(**{k: v for k, v in vars(args).items()
+                         if k in SuRSConfig.__dataclass_fields__}).validate()
+
+
+def parse_config(argv: Optional[Sequence[str]] = None) -> SuRSConfig:
+    """``build_parser`` over ``argv`` (default ``sys.argv[1:]``) -> a
+    validated config (``surs_tpu/config.py:343``)."""
+    return config_from_args(build_parser().parse_args(argv))
+
+
+def print_config(cfg: SuRSConfig) -> str:
+    """Every field, sorted, with its default beside it where it differs:
+    the reference's option dump (``surs_tpu/config.py:348``)."""
+    defaults = SuRSConfig()
+    lines = ["----------------- Options ---------------"]
+    for f in sorted(dataclasses.fields(SuRSConfig), key=lambda f: f.name):
+        v = getattr(cfg, f.name)
+        comment = ""
+        if v != getattr(defaults, f.name):
+            comment = f"\t[default: {getattr(defaults, f.name)}]"
+        lines.append(f"{f.name:>25}: {str(v):<30}{comment}")
+    lines.append("----------------- End -------------------")
+    return "\n".join(lines)

@@ -36,3 +36,17 @@ def flat_index_to_world(flat_idx: torch.Tensor, lattice_size: int,
                          device=dev)
     offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=dev)
     return ijk * scale[:, None] + offset[:, None]
+
+
+def require_diagonal(mat: np.ndarray, context: str) -> np.ndarray:
+    """The evaluators build world points from ``diag(mat[:3, :3])``
+    alone (``flat_index_to_world``), so a rotating or shearing grid
+    transform would be dropped by the fields and applied to the
+    vertices: raise instead (``surs_tpu/recon/grid.py:33``)."""
+    rot = np.asarray(mat[:3, :3], np.float64)
+    if not np.allclose(rot, np.diag(np.diag(rot)), atol=1e-12):
+        raise ValueError(
+            f"{context} supports only axis-aligned (diagonal) grid "
+            "transforms: the evaluators build coordinates from diag(mat); "
+            f"got off-diagonal terms {rot - np.diag(np.diag(rot))!r}")
+    return mat

@@ -1,23 +1,38 @@
-"""OBJ writer (counterpart of ``save_obj_mesh``,
-``surs_tpu/recon/mesh_io.py:26-37``): byte-identical output, 4-decimal
-vertices and faces written with the reference's winding swap
-``f v0 v2 v1`` (1-based). The formatting is one %-operation over the
-whole array instead of one per line: a 512^3 mesh has millions of
-lines. Also the training loop's colored PLY dump of occupancy samples."""
+"""Mesh I/O (counterpart of ``surs_tpu/recon/mesh_io.py``).
+
+``save_obj_mesh`` writes OBJ files through the port's host library
+(``csrc/mesh_native.cpp``, bound in ``recon/native.py``), byte for byte
+the JAX package's default writer: 4-decimal vertices and faces written
+with the reference's winding swap ``f v0 v2 v1`` (1-based).
+``save_obj_mesh_ref`` is the same format in numpy, the plain version the
+tests hold the library to; the served path never takes it. ``load_obj``
+reads an OBJ file through the library, ``load_obj_ref`` in Python. Also
+the training loop's colored PLY dump of occupancy samples."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+from . import native
 
 
 def save_obj_mesh(path: str, verts, faces) -> None:
-    """Vertices round as the JAX package's default writer, the native
-    one (``csrc/mesh_native.cpp:fmt_fixed4``): ``|v| * 1e4 + 0.5``
-    truncated, the sign taken from ``v < 0``. So a tie rounds away from
-    zero (-0.40625 -> ``-0.4063``, where ``%.4f`` of the double gives
-    ``-0.4062``), a small negative writes ``-0.0000`` and ``-0.0`` writes
-    ``0.0000``. The values are pre-rounded that way, then ``%.4f``
-    prints the 4-decimal value exactly."""
+    """verts [V, 3], faces [F, 3] (0-based) -> an OBJ file, through the
+    host library; raises when it cannot be built or the write fails."""
+    native.write_obj(path, verts, faces)
+
+
+def save_obj_mesh_ref(path: str, verts, faces) -> None:
+    """The plain version of :func:`save_obj_mesh`. Vertices round as
+    the native writer (``csrc/mesh_native.cpp:fmt_fixed4``): ``|v| * 1e4
+    + 0.5`` truncated, the sign taken from ``v < 0``. So a tie rounds
+    away from zero (-0.40625 -> ``-0.4063``, where ``%.4f`` of the
+    double gives ``-0.4062``), a small negative writes ``-0.0000`` and
+    ``-0.0`` writes ``0.0000``. The values are pre-rounded that way, then
+    ``%.4f`` prints the 4-decimal value exactly; one %-operation over the
+    whole array instead of one per line."""
     verts = np.asarray(verts, dtype=np.float64).reshape(-1, 3)
     faces = np.asarray(faces, dtype=np.int64).reshape(-1, 3)
     r = np.floor(np.abs(verts) * 1e4 + 0.5) / 1e4
@@ -29,6 +44,32 @@ def save_obj_mesh(path: str, verts, faces) -> None:
     with open(path, "w") as f:
         f.write(v_txt)
         f.write(f_txt)
+
+
+def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """An OBJ file -> (verts [V, 3] float32, faces [F, 3] int64), through
+    the host library: polygons fan-triangulated, indices 1-based or
+    negative, ``v/vt/vn`` face tokens."""
+    return native.read_obj(path)
+
+
+def load_obj_ref(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The plain version of :func:`load_obj`
+    (``surs_tpu/recon/mesh_io.py:load_obj`` without colors)."""
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append((float(parts[1]), float(parts[2]),
+                              float(parts[3])))
+            elif line.startswith("f "):
+                idx = [int(p.split("/")[0]) for p in line.split()[1:]]
+                idx = [i - 1 if i > 0 else len(verts) + i for i in idx]
+                for k in range(1, len(idx) - 1):
+                    faces.append((idx[0], idx[k], idx[k + 1]))
+    return (np.asarray(verts, dtype=np.float32).reshape(-1, 3),
+            np.asarray(faces, dtype=np.int64).reshape(-1, 3))
 
 
 _PLY_HEADER = ("ply\nformat ascii 1.0\nelement vertex {:d}\n"

@@ -1,0 +1,75 @@
+"""ctypes bindings of the port's host mesh library
+(``csrc/mesh_native.cpp``, counterpart of ``surs_tpu/recon/native.py``):
+the OBJ writer and reader.
+
+The library is built with the host C++ compiler at first use
+(``ops/cuda_build.py``); a missing compiler or a failed build raises,
+and so does a failed call: there is no fallback. ctypes releases the GIL
+for the length of a call, so a write on one thread runs beside Python
+work on another.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..ops import cuda_build
+
+_LIB: Optional[ctypes.CDLL] = None
+_F32P = ctypes.POINTER(ctypes.c_float)
+_F64P = ctypes.POINTER(ctypes.c_double)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded host library with its signatures, built first if
+    needed."""
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("mesh_native")
+        lib.surs_write_obj.restype = ctypes.c_int
+        lib.surs_write_obj.argtypes = [ctypes.c_char_p, _F64P,
+                                       ctypes.c_int64, _I64P,
+                                       ctypes.c_int64]
+        lib.surs_read_obj.restype = ctypes.c_int
+        lib.surs_read_obj.argtypes = [ctypes.c_char_p, _F32P, _I64P, _I64P,
+                                      _I64P]
+        lib.surs_free.argtypes = [ctypes.c_void_p]
+        _LIB = lib
+    return _LIB
+
+
+def write_obj(path: str, verts, faces) -> None:
+    """verts [V, 3] (written from float64), faces [F, 3] 0-based ->
+    the OBJ file at ``path``."""
+    verts = np.ascontiguousarray(verts, dtype=np.float64).reshape(-1, 3)
+    faces = np.ascontiguousarray(faces, dtype=np.int64).reshape(-1, 3)
+    rc = library().surs_write_obj(
+        os.fsencode(path), verts.ctypes.data_as(_F64P), verts.shape[0],
+        faces.ctypes.data_as(_I64P), faces.shape[0])
+    if rc != 0:
+        raise OSError(f"{path}: the OBJ writer failed "
+                      f"({'cannot open' if rc == 1 else 'write error'})")
+
+
+def read_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """An OBJ file -> (verts [V, 3] float32, faces [F, 3] int64,
+    0-based), polygons fan-triangulated. Two calls of the library: the
+    counts, then the arrays."""
+    lib = library()
+    p = os.fsencode(path)
+    nv, nf = ctypes.c_int64(), ctypes.c_int64()
+    if lib.surs_read_obj(p, None, ctypes.byref(nv), None,
+                         ctypes.byref(nf)) != 0:
+        raise OSError(f"{path}: cannot open the OBJ file")
+    verts = np.empty((nv.value, 3), np.float32)
+    faces = np.empty((nf.value, 3), np.int64)
+    rc = lib.surs_read_obj(p, verts.ctypes.data_as(_F32P), ctypes.byref(nv),
+                           faces.ctypes.data_as(_I64P), ctypes.byref(nf))
+    if rc != 0:
+        raise OSError(f"{path}: the OBJ file changed while it was read")
+    return verts[:nv.value], faces[:nf.value]

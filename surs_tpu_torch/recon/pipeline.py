@@ -2,25 +2,35 @@
 ``surs_tpu/recon/pipeline.py``): encode the image once, evaluate the
 (HR, LR) occupancy fields (coarse-to-fine, or densely), extract both
 meshes with marching cubes on the fields' device and write
-``*_HR.obj`` / ``*_LR.obj``.
+``*_HR.obj`` / ``*_LR.obj`` through the host library.
+
+    rec = build_reconstructor(cfg, model, device, cfg.serve_octree_mode)
+    rec.gen_mesh(cfg, data, "out/subject.obj")
+
+The functional ``reconstruction`` and ``gen_mesh`` build a
+``Reconstructor`` for one call.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.fused_mlp import FusedWeights
+from ..ops.fused_mlp import (FusedWeights, prepare_cols_weights,
+                             prepare_fused_weights)
 from ..ops.point_query import fused_query
 from .evaluator import (dense_cols_separable, eval_grid_dense,
                         eval_grid_dense_cols, eval_grid_octree)
 from .evaluator_runs import eval_grid_octree_runs, runs_supported
-from .grid import grid_matrix
+from .grid import grid_matrix, require_diagonal
 from .marching import marching_cubes
 from .mesh_io import save_obj_mesh
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def eval_calibration(batch: int = 1) -> np.ndarray:
@@ -71,15 +81,21 @@ class Reconstructor:
                  resolution: int, b_min, b_max, use_octree: bool = True,
                  num_samples: int = 50000, threshold: float = 0.05,
                  init_resolution: int = 64, silhouette=None,
-                 silhouette_dilate: int = 3, stats: Optional[Dict] = None):
+                 silhouette_dilate: int = 3, stats: Optional[Dict] = None,
+                 transform: Optional[np.ndarray] = None):
         """Both occupancy fields on the R^3 grid spanning [b_min, b_max);
-        returns (sdf_hr, sdf_lr, mat). ``silhouette`` ([H, W(, 1)]
-        binary mask) enables visual-hull pruning of the octree.
+        returns (sdf_hr, sdf_lr, mat). ``transform`` (4x4, axis-aligned:
+        anything else raises) maps the grid's world points once more.
+        ``silhouette`` ([H, W(, 1)] binary mask) enables visual-hull
+        pruning of the octree.
         ``stats["mode"]`` names the path that ran: 'dense-cols', 'dense',
         'octree-runs' or 'octree-mono'; ``stats["queries"]`` counts the
         points scored."""
         R = resolution
         mat = grid_matrix((R,) * 3, b_min, b_max)
+        if transform is not None:
+            mat = require_diagonal(np.asarray(transform) @ mat,
+                                   "Reconstructor.evaluate(transform=)")
         stats = {} if stats is None else stats
         cw = self.cols_weights
         if not use_octree and cw is not None \
@@ -126,22 +142,49 @@ class Reconstructor:
             stats=stats)
         return sdf_hr, sdf_lr, mat
 
+    def reconstruct(self, feats_lr, feat_hr, calib: np.ndarray,
+                    resolution: int, b_min, b_max, use_octree: bool = True,
+                    num_samples: int = 50000, threshold: float = 0.05,
+                    init_resolution: int = 64,
+                    transform: Optional[np.ndarray] = None,
+                    level: float = 0.5, silhouette=None,
+                    stats: Optional[Dict] = None):
+        """Evaluation and extraction: (verts_hr, faces_hr, verts_lr,
+        faces_lr) numpy arrays, world coordinates."""
+        sdf_hr, sdf_lr, mat = self.evaluate(
+            feats_lr, feat_hr, calib, resolution, b_min, b_max,
+            use_octree=use_octree, num_samples=num_samples,
+            threshold=threshold, init_resolution=init_resolution,
+            silhouette=silhouette, stats=stats, transform=transform)
+        out = []
+        for verts, faces in self.extract_pair(sdf_hr, sdf_lr, mat, level):
+            out += [verts, faces]
+        return tuple(out)
+
     @staticmethod
     @torch.inference_mode()
     def extract_pair(sdf_hr, sdf_lr, mat, level: float = 0.5):
         """Yield (verts [V, 3] float32 world, faces [F, 3] int64) numpy
-        arrays for the HR then the LR field."""
+        arrays for the HR then the LR field. Both meshes are extracted,
+        and both copies to the host started, before the HR mesh is
+        yielded: on the card the LR mesh's copy into pinned memory runs
+        while the caller writes the HR file (the staging of
+        ``surs_tpu/recon/pipeline.py:365-374``)."""
         mat = np.asarray(mat)
-        for sdf in (sdf_hr, sdf_lr):
-            verts, faces = marching_cubes(sdf, level)
-            verts = verts.cpu().numpy() @ mat[:3, :3].T + mat[:3, 3]
-            yield verts.astype(np.float32), faces.cpu().numpy()
+        staged = [_to_host(*marching_cubes(sdf, level))
+                  for sdf in (sdf_hr, sdf_lr)]
+        for fetch in staged:
+            verts, faces = fetch()
+            verts = verts @ mat[:3, :3].T + mat[:3, 3]
+            yield verts.astype(np.float32), faces
 
     def gen_mesh_begin(self, cfg, data: dict, save_path: str,
                        stats: Optional[Dict] = None):
         """Encode and evaluate one subject; returns ``finish()``, which
         extracts both meshes and writes the OBJ pair, returning
-        (path_hr, path_lr)."""
+        (path_hr, path_lr). ``stats`` gathers the evaluation's mode and
+        queries, the faces of each mesh and the seconds of the OBJ
+        writes (``write_s``)."""
         _, feats_lr, feat_hr = self.encode(data["img_LR"])
         if "calib" in data:
             calib = np.asarray(data["calib"], np.float32).reshape(-1, 4, 4)
@@ -163,9 +206,12 @@ class Reconstructor:
         def finish() -> Tuple[str, str]:
             for path, (verts, faces) in zip(
                     paths, self.extract_pair(sdf_hr, sdf_lr, mat)):
+                t0 = time.perf_counter()
+                save_obj_mesh(path, verts, faces)
                 if stats is not None:
                     stats.setdefault("faces", []).append(len(faces))
-                save_obj_mesh(path, verts, faces)
+                    stats["write_s"] = (stats.get("write_s", 0.0)
+                                        + time.perf_counter() - t0)
             return paths
 
         return finish
@@ -173,3 +219,70 @@ class Reconstructor:
     def gen_mesh(self, cfg, data: dict, save_path: str,
                  stats: Optional[Dict] = None) -> Tuple[str, str]:
         return self.gen_mesh_begin(cfg, data, save_path, stats)()
+
+
+def _to_host(verts: torch.Tensor, faces: torch.Tensor):
+    """Start copying a mesh to the host; returns ``fetch() -> (verts,
+    faces)`` numpy arrays. On the card the copies go into pinned memory,
+    non-blocking, and ``fetch`` waits for them alone."""
+    if verts.device.type != "cuda":
+        return lambda: (verts.numpy(), faces.numpy())
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in (verts, faces)]
+    for h, t in zip(host, (verts, faces)):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def fetch():
+        done.synchronize()
+        return host[0].numpy(), host[1].numpy()
+
+    return fetch
+
+
+def build_reconstructor(cfg, model, device, octree_mode: str
+                        ) -> Reconstructor:
+    """A Reconstructor for ``model`` under a resolved config: K1's
+    weights packed in ``cfg.feature_dtype``, and the column weights of
+    K3 and K4 where dense evaluation or the runs octree needs them. The
+    packed weights are copies: load the model's weights first."""
+    kdt = _DTYPES[cfg.feature_dtype]
+    weights = prepare_fused_weights(model.mlp_lr, model.mlp_hr, dtype=kdt)
+    cols = None
+    if not cfg.use_octree or octree_mode == "runs":
+        cols = prepare_cols_weights(model.mlp_lr, model.mlp_hr, cfg.hg_dim,
+                                    dtype=kdt)
+    return Reconstructor(model, weights, device, feature_dtype=kdt,
+                         octree_mode=octree_mode, cols_weights=cols,
+                         load_size=cfg.loadSize, z_size=cfg.z_size)
+
+
+def reconstruction(model, feats_lr, feat_hr, calib, resolution: int, b_min,
+                   b_max, use_octree: bool = True, num_samples: int = 50000,
+                   threshold: float = 0.05, init_resolution: int = 64,
+                   transform: Optional[np.ndarray] = None,
+                   weights: Optional[FusedWeights] = None,
+                   level: float = 0.5):
+    """Evaluate both occupancy fields and extract both meshes
+    (``surs_tpu/recon/pipeline.py:476``) on the features' device;
+    ``weights`` default to the model's MLPs packed in float32. Returns
+    (verts_hr, faces_hr, verts_lr, faces_lr)."""
+    if weights is None:
+        weights = prepare_fused_weights(model.mlp_lr, model.mlp_hr,
+                                        dtype=torch.float32)
+    rec = Reconstructor(model, weights, feat_hr.device)
+    return rec.reconstruct(feats_lr, feat_hr, calib, resolution, b_min,
+                           b_max, use_octree, num_samples, threshold,
+                           init_resolution, transform, level)
+
+
+def gen_mesh(cfg, model, data: dict, save_path: str,
+             stats: Optional[Dict] = None) -> Tuple[str, str]:
+    """One subject's OBJ pair (``surs_tpu/recon/pipeline.py:491``) under
+    a resolved config, with ``cfg.octree_mode``; builds the
+    Reconstructor for this call, so prefer :func:`build_reconstructor`
+    or the service for loops."""
+    device = next(model.parameters()).device
+    rec = build_reconstructor(cfg, model, device, cfg.octree_mode)
+    return rec.gen_mesh(cfg, data, save_path, stats)

@@ -5,6 +5,11 @@ model is built once, then (image, mask) pairs become OBJ mesh pairs.
     service.warmup((256, 256))
     paths = service.reconstruct(image_rgb, mask, "subject", out_dir)
 
+The weights come from ``cfg.load_netG_checkpoint_path`` (a port
+``netG_*`` file or a reference state dict, compat/torch_import.py), from
+``params=`` (a Flax params tree) or, with neither, at random from
+``cfg.seed``.
+
 Images are HxWx3 uint8/float arrays (masked and normalised to [-1, 1]
 inside). Point queries go through kernel K1 (ops/fused_mlp.py) on the
 card; ``use_octree=False`` scores the whole grid through kernel K3, and
@@ -16,18 +21,17 @@ from __future__ import annotations
 import os
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .compat.flax_import import load_flax_params
+from .compat.torch_import import load_netG
 from .config import SuRSConfig, resolve_config, resolve_device
 from .models.surs_net import surs_net_from_config
-from .ops.fused_mlp import prepare_cols_weights, prepare_fused_weights
-from .recon.pipeline import Reconstructor, eval_calibration
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from .recon.pipeline import build_reconstructor, eval_calibration
 
 
 def normalize_image(image, mask) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -49,18 +53,19 @@ def normalize_image(image, mask) -> Tuple[np.ndarray, Optional[np.ndarray]]:
 
 class SuRSService:
     """``params``: optional Flax params tree (numpy leaves) of the JAX
-    package's SuRSNet, loaded through the weight bridge; without it the
-    weights are random from ``cfg.seed``. ``device`` defaults to CUDA
-    and raises when no GPU is present."""
+    package's SuRSNet, loaded through the weight bridge; otherwise the
+    weights come from ``cfg.load_netG_checkpoint_path`` through
+    ``load_netG``, or at random from ``cfg.seed`` without one; giving
+    both raises. ``device`` defaults to CUDA and raises when no GPU is
+    present."""
 
     def __init__(self, cfg: SuRSConfig, params: Optional[Mapping] = None,
                  device=None):
         self.device = resolve_device(device)
         cfg = resolve_config(cfg, self.device)
-        if cfg.load_netG_checkpoint_path:
-            raise NotImplementedError(
-                "checkpoint import is not ported yet (ROADMAP.md A17); "
-                "pass params= (a Flax params tree) instead")
+        if params is not None and cfg.load_netG_checkpoint_path:
+            raise ValueError("give params= or load_netG_checkpoint_path, "
+                             "not both")
         # float32 means float32: cuDNN would otherwise run f32
         # convolutions in TF32, and the port's f32 products must match
         # the reference's
@@ -68,22 +73,16 @@ class SuRSService:
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.model = surs_net_from_config(cfg, self.device)
+        # the weights load before the kernels' packed copies are made
         if params is not None:
             load_flax_params(self.model, params)
-        kdt = _DTYPES[cfg.feature_dtype]
-        self.weights = prepare_fused_weights(self.model.mlp_lr,
-                                             self.model.mlp_hr, dtype=kdt)
-        cols = None
-        if not cfg.use_octree or cfg.serve_octree_mode == "runs":
-            # dense serving takes kernel K3, runs-mode octree serving
-            # kernel K4, where the calibration allows
-            cols = prepare_cols_weights(self.model.mlp_lr, self.model.mlp_hr,
-                                        cfg.hg_dim, dtype=kdt)
-        self.rec = Reconstructor(self.model, self.weights, self.device,
-                                 feature_dtype=kdt,
-                                 octree_mode=cfg.serve_octree_mode,
-                                 cols_weights=cols, load_size=cfg.loadSize,
-                                 z_size=cfg.z_size)
+        else:
+            load_netG(cfg, self.model)
+        # K1's weights; dense serving takes kernel K3, runs-mode octree
+        # serving kernel K4, where the calibration allows
+        self.rec = build_reconstructor(cfg, self.model, self.device,
+                                       cfg.serve_octree_mode)
+        self.weights = self.rec.weights
 
     def _data(self, image, mask):
         img, m = normalize_image(image, mask)
@@ -113,29 +112,47 @@ class SuRSService:
 
     def reconstruct_many(self, items, out_dir: str,
                          pipeline: Optional[bool] = None,
-                         stats: Optional[dict] = None):
+                         stats: Optional[dict] = None,
+                         writer_thread: bool = False, depth: int = 2):
         """``items`` iterates (image, mask, name); returns the (HR, LR)
         path pairs in order. ``pipeline`` (default: on at resolution
         >= 512) begins subject i+1 (encode and evaluation) before
-        finishing subject i (extraction and OBJ writes); the results
-        equal sequential :meth:`reconstruct` calls."""
+        finishing subject i (extraction and OBJ writes).
+        ``writer_thread`` runs the finish stage (extraction, copies,
+        native writes, which release the GIL) on one worker thread,
+        with at most ``depth`` subjects in flight beyond the one being
+        begun. The results equal sequential :meth:`reconstruct`
+        calls."""
         os.makedirs(out_dir, exist_ok=True)
         if pipeline is None:
             pipeline = self.cfg.resolution >= 512
         if not pipeline:
             return [self.reconstruct(image, mask, name, out_dir, stats)
                     for image, mask, name in items]
-        results, pending = [], None
-        for image, mask, name in items:
-            work = self.rec.gen_mesh_begin(
+
+        def begin(image, mask, name):
+            return self.rec.gen_mesh_begin(
                 self.cfg, self._data(image, mask),
                 os.path.join(out_dir, name + ".obj"), stats)
+
+        if not writer_thread:
+            results, pending = [], None
+            for image, mask, name in items:
+                work = begin(image, mask, name)
+                if pending is not None:
+                    results.append(pending())
+                pending = work
             if pending is not None:
                 results.append(pending())
-            pending = work
-        if pending is not None:
-            results.append(pending())
-        return results
+            return results
+        futures = []
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="surs-writer") as ex:
+            for image, mask, name in items:
+                futures.append(ex.submit(begin(image, mask, name)))
+                if len(futures) > depth:
+                    futures[len(futures) - 1 - depth].result()
+            return [f.result() for f in futures]
 
     def fields(self, image, mask, stats: Optional[dict] = None):
         """Raw (sdf_hr, sdf_lr) [R, R, R] occupancy tensors of a

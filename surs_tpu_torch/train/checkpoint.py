@@ -4,18 +4,35 @@
 ``torch.save`` of the model's state_dict, the optimizer's state_dict and
 the step, under the reference's names:
 ``{checkpoints_path}/{name}/netG_epoch_{N}`` and ``netG_latest``. The
-full train state is saved, so a resume is exact. Reading the JAX
-package's orbax directories is not ported (ROADMAP.md A17).
+full train state is saved, so a resume is exact. ``load_model_state``
+reads such a file, or a reference ``torch.save(netG.state_dict())``
+file, for the trainer's resume and the service's ``load_netG``. Reading
+the JAX package's orbax directories is not ported (ROADMAP.md A17).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from collections.abc import Mapping
+from typing import Optional, Tuple
 
 import torch
 
 from .step import TrainState
+
+
+def load_model_state(path: str, map_location="cpu"
+                     ) -> Tuple[Mapping, Optional[dict]]:
+    """A checkpoint file -> (the model's state_dict, the train-state
+    blob or None). A port ``netG_*`` file is a blob ``{"step", "model",
+    "optimizer"}``; any other mapping is taken as a bare state dict (the
+    reference's ``torch.save(netG.state_dict())``)."""
+    blob = torch.load(path, map_location=map_location, weights_only=True)
+    if not isinstance(blob, Mapping):
+        raise ValueError(f"{path}: not a state dict or a train state")
+    if isinstance(blob.get("model"), Mapping) and "step" in blob:
+        return blob["model"], blob
+    return blob, None
 
 
 class CheckpointManager:
@@ -43,9 +60,11 @@ class CheckpointManager:
         epoch=None reads netG_latest (the reference's resume_epoch < 0
         convention)."""
         device = next(state.model.parameters()).device
-        blob = torch.load(self.path(epoch), map_location=device,
-                          weights_only=True)
-        state.model.load_state_dict(blob["model"])
+        path = self.path(epoch)
+        model_state, blob = load_model_state(path, device)
+        if blob is None:
+            raise ValueError(f"{path}: a bare state dict, not a train state")
+        state.model.load_state_dict(model_state)
         state.optimizer.load_state_dict(blob["optimizer"])
         state.step = int(blob["step"])
         return state
