@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  1. build:   compile every CUDA kernel (K1, K2, K3 and K4 together, K5:
-              four sources) with nvcc and the host OBJ library with g++
+  1. build:   compile every CUDA kernel (K1, K2, K3 and K4 together, K5,
+              the winding number: five sources) with nvcc and the host
+              OBJ library with g++
               from the repository's sources (one compiler per source, in
               parallel), with ptxas' registers, spills
               and warnings per kernel and, where the toolkit has
@@ -113,13 +114,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
               gradients against the plain step's, tensor by tensor; and
               the trainer's last checkpoint restored into a fresh state
               on the card equals the state it saved.
+ 14. containment (run after k5): the winding-number kernel
+              (csrc/winding_number.cu) against its plain version on the
+              card at one training item's draw (25,500 points, sigma 5.0
+              in the default box) against a body of four ellipsoids
+              (327,680 faces HR, 20,480 LR), and on a ragged open mesh,
+              zero-area triangles, points on vertices and a mesh with a
+              hole: max |winding difference| within WIND_TOL and no label
+              mismatch outside the band ||w| - pi| <= WIND_TOL; ms per
+              item (HR + LR) against roofline.containment_work's bound
+              and the plain version's ms.
+ 15. train_data: writes a dataset of 2 such bodies x 12 yaws (RENDER
+              JPEG and MASK PNG at 512 with the bodies' silhouettes under
+              the PARAM camera, PARAM .npy, GEO/OBJ through the port's
+              writer), times one item's parts (mesh load, image,
+              containment, the rest of the sampling), then runs the train
+              CLI's main() at full width (loadSize 512, batch 2, 6,000
+              points, 3 lr stacks, --fused_train, flip / scale /
+              translate and ColorJitter) for one epoch of 12 steps with
+              the epoch-end checkpoint and the 4 OBJ files of the meshes
+              at 512^3; the winding number's, K2's and K1's launch counts
+              are zeroed just before main() and read just after (2 an
+              item, 3 a step, > 0); seconds per step, each step's wait
+              for its batch, peak memory, finite losses.
+ 16. precompute: precompute_samples on the card (draws a second; 2
+              containment launches a draw), then 6 fused steps trained
+              from the cache (no containment launch), their wait for
+              data beside train_data's.
 
 ``--phases`` runs a subset (for debugging; the result line then says
 which ran). Two phases run only when named: ``train_profile`` (a
 torch.profiler breakdown of 3 fused steps) and ``serve_profile`` (one
 mono octree evaluation at 512^3 timed 4 times and profiled once: device
-time by kernel, device operations, K1's device time, busy share). Then a ``{"kernels": [...]}`` line, the card's name and
-power limit as nvidia-smi reports them, and last
+time by kernel, device operations, K1's device time, busy share). Then a
+``{"kernels": [...]}`` line (K1-K5), a ``{"port_kernels": [...]}`` line
+(the winding number, which replaces no Pallas kernel), the card's name
+and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 no CUDA device is present.
 """
@@ -262,11 +292,12 @@ KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_train_tf32x3_head_kernel", "cols_terms_bf16_kernel",
            "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_cols_f32_kernel",
            "fused_dual_mlp_runs_wgmma_kernel", "fused_dual_mlp_runs_f32_kernel",
+           "winding_number_kernel", "winding_number_reduce_kernel",
            ) + K5_KERNELS
 # the kernel sources, and the host library of the OBJ writer and reader
 # (csrc/mesh_native.cpp, built with g++ beside them)
 SOURCES = ("fused_dual_mlp", "fused_train_tf32", "fused_cols_mlp",
-           "row_gather", "mesh_native")
+           "row_gather", "winding_number", "mesh_native")
 # the bf16 K1/K3/K4 chain kernels and K2's 3xTF32 GEMM, whose SASS must
 # hold warpgroup MMAs
 WGMMA_KERNELS = ("fused_dual_mlp_wgmma_kernel",
@@ -1700,9 +1731,489 @@ def phase_serve_profile(subjects, repeats: int = 4):
         raise AssertionError(f"the serve profile saw no K1: {rec}")
 
 
-PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "serve", "check",
-          "stages", "native_io", "cli", "eval", "dense", "runs", "train",
-          "train_check")
+# -------------------------------------------- training data: containment --
+# The on-disk dataset of train_data and precompute, made from numpy: each
+# subject is four overlapping ellipsoids (torso, head, two legs) in the
+# default box's units (b_min/b_max = [-128, -28, -128] / [128, 228,
+# 128], sigma 5.0), an icosphere of HR_LEVEL (4 x 81,920 = 327,680 faces)
+# for the HR mesh and of LR_LEVEL (4 x 5,120 = 20,480) for the LR one.
+BODY = (((0.0, 120.0, 0.0), (32.0, 45.0, 18.0)),
+        ((0.0, 178.0, 0.0), (12.0, 15.0, 13.0)),
+        ((-13.0, 45.0, 0.0), (11.0, 48.0, 12.0)),
+        ((13.0, 45.0, 0.0), (11.0, 48.0, 12.0)))
+HR_LEVEL, LR_LEVEL = 6, 4
+# the subjects' proportions (x, y, z stretch of BODY)
+DATA_STRETCH = ((1.0, 1.0, 1.0), (1.1, 0.96, 1.08))
+DATA_YAWS = list(range(0, 360, 30))          # 12 views a subject
+# the PARAM camera: orthographic, the body's height over about 0.8 of the
+# 512 image's half-height
+DATA_ORTHO_RATIO, DATA_SCALE = 0.4, 0.84
+DATA_CENTER = (0.0, 95.0, 0.0)
+# the winding number against its plain version on the card, max |w|
+# difference (radians, out of 4 pi = 12.6 inside): the kernel adds a
+# share's ~30,000 angles one after another in float32, the plain version
+# adds chunks of 2,048 by pairs (~1e-4 apart for 3e5 terms of up to 2 pi,
+# 1e-3 worst); a dropped tile near a jittered point moves it by up to
+# 2 pi. Labels are compared where ||w| - pi| exceeds it.
+WIND_TOL = 1e-2
+# precompute: draws a subject, and the steps trained from the cache
+PRECOMPUTE_DRAWS = 4
+PRECOMPUTE_STEPS = 6
+
+
+def icosphere(level: int):
+    """Unit icosphere: (verts [V, 3] float64, faces [F, 3] int64, 20 x
+    4^level faces, outward)."""
+    t = (1.0 + 5 ** 0.5) / 2
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+                  [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+                  [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], float)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+                  [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+                  [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+                  [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]])
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    for _ in range(level):
+        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]],
+                                        f[:, [2, 0]]]), axis=1)
+        uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+        mid = v[uniq[:, 0]] + v[uniq[:, 1]]
+        mid /= np.linalg.norm(mid, axis=1, keepdims=True)
+        m01, m12, m20 = (inv.reshape(3, -1) + len(v))
+        a, b, c = f.T
+        v = np.concatenate([v, mid])
+        f = np.stack([np.stack([a, m01, m20], 1), np.stack([m01, b, m12], 1),
+                      np.stack([m20, m12, c], 1),
+                      np.stack([m01, m12, m20], 1)], 1).reshape(-1, 3)
+    return v, f.astype(np.int64)
+
+
+def body_parts(stretch=(1.0, 1.0, 1.0)):
+    st = np.asarray(stretch, float)
+    return [(np.asarray(c) * st, np.asarray(a) * st) for c, a in BODY]
+
+
+def body_mesh(level: int, stretch=(1.0, 1.0, 1.0)):
+    """The body as one triangle soup of its parts: (verts float32,
+    faces int64). Overlapping parts wind twice (|w| = 8 pi): inside."""
+    sv, sf = icosphere(level)
+    verts, faces = [], []
+    for i, (c, a) in enumerate(body_parts(stretch)):
+        verts.append(c + sv * a)
+        faces.append(sf + i * len(sv))
+    return (np.concatenate(verts).astype(np.float32),
+            np.concatenate(faces))
+
+
+def yaw_rotation(yaw: float) -> np.ndarray:
+    y = np.deg2rad(yaw)
+    return np.array([[np.cos(y), 0, np.sin(y)], [0, 1, 0],
+                     [-np.sin(y), 0, np.cos(y)]])
+
+
+def body_silhouette(param: dict, size: int, stretch) -> np.ndarray:
+    """The body's mask [size, size] uint8 under the PARAM camera: the
+    union of its parts' projected ellipses (an ellipsoid c + diag(a) z,
+    |z| <= 1, projects orthographically onto the ellipse of B = P R
+    diag(a)), at pixel centres, in the calib's uv convention (u right,
+    v down, |uv| <= 1 across the image)."""
+    R = np.asarray(param["R"])
+    k = param["scale"] / param["ortho_ratio"] / (size // 2)
+    uv = (np.arange(size) + 0.5) / (size // 2) - 1.0
+    qx, qy = uv[None, :] / k, -uv[:, None] / k    # camera x, y
+    mask = np.zeros((size, size), bool)
+    for c, a in body_parts(stretch):
+        B = (R @ np.diag(a))[:2]
+        q0 = (R @ (c - np.asarray(param["center"])))[:2]
+        Q = np.linalg.inv(B @ B.T)
+        dx, dy = qx - q0[0], qy - q0[1]
+        mask |= (Q[0, 0] * dx * dx + 2 * Q[0, 1] * dx * dy
+                 + Q[1, 1] * dy * dy) <= 1.0
+    return mask.astype(np.uint8) * 255
+
+
+def write_train_dataset(root: str, size: int = 512) -> dict:
+    """RENDER/ (JPEG), MASK/ (PNG), PARAM/ (.npy) at DATA_YAWS and
+    GEO/OBJ/<s>_{HR,LR}.obj (the port's writer) for DATA_STRETCH's
+    subjects, an empty val.txt; returns the mesh sizes."""
+    from PIL import Image
+    from surs_tpu_torch.recon.mesh_io import save_obj_mesh
+    rng = np.random.default_rng(SEED)
+    obj_dir = os.path.join(root, "GEO", "OBJ")
+    os.makedirs(obj_dir)
+    open(os.path.join(root, "val.txt"), "w").close()
+    sizes = {}
+    yy, xx = np.mgrid[:size, :size] / size
+    for s, stretch in enumerate(DATA_STRETCH):
+        subject = f"body{s}"
+        for tag, level in (("HR", HR_LEVEL), ("LR", LR_LEVEL)):
+            verts, faces = body_mesh(level, stretch)
+            save_obj_mesh(os.path.join(obj_dir, f"{subject}_{tag}.obj"),
+                          verts, faces)
+            sizes[f"{subject}_{tag}_faces"] = len(faces)
+        for d in ("RENDER", "MASK", "PARAM"):
+            os.makedirs(os.path.join(root, d, subject))
+        base = rng.uniform(0.3, 0.9, 3)
+        for yaw in DATA_YAWS:
+            param = {"ortho_ratio": DATA_ORTHO_RATIO, "scale": DATA_SCALE,
+                     "center": np.asarray(DATA_CENTER),
+                     "R": yaw_rotation(yaw)}
+            mask = body_silhouette(param, size, stretch)
+            shade = (0.6 + 0.4 * np.cos(6 * xx + yaw / 57.3)[..., None]
+                     * np.sin(4 * yy)[..., None]) * base
+            rgb = np.clip(shade + rng.normal(0, 0.03, shade.shape), 0, 1)
+            rgb = (rgb * 255 * (mask[..., None] > 0)).astype(np.uint8)
+            stem = f"{yaw}_0_00"
+            Image.fromarray(rgb).save(
+                os.path.join(root, "RENDER", subject, stem + ".jpg"))
+            Image.fromarray(mask).save(
+                os.path.join(root, "MASK", subject, stem + ".png"))
+            np.save(os.path.join(root, "PARAM", subject, stem + ".npy"),
+                    param, allow_pickle=True)
+    return sizes
+
+
+def item_draw(mesh_hr, mesh_lr, seed: int = SEED):
+    """The 25,500 points of one training item's draw (sample_points_and_
+    labels at TRAIN_POINTS, sigma 5.0, the default box): its own code,
+    with the labelling replaced by a recorder."""
+    from surs_tpu_torch.config import SuRSConfig
+    from surs_tpu_torch.data.sampling import sample_points_and_labels
+    cfg, drawn = SuRSConfig(), []
+
+    def record(pts, mesh):
+        drawn.append(pts)
+        return np.zeros(len(pts), bool)
+
+    sample_points_and_labels(mesh_hr, mesh_lr, TRAIN_POINTS, cfg.sigma,
+                             np.asarray(cfg.b_min), np.asarray(cfg.b_max),
+                             np.random.default_rng(seed),
+                             contains_fn=record)
+    return drawn[0].astype(np.float32)
+
+
+def phase_containment():
+    """The winding-number kernel against its plain version on the card
+    at one item's draw (25,500 points) against the HR (327,680 faces) and
+    LR (20,480) body, and on edge cases: a ragged open mesh, zero-area
+    triangles, points on vertices, a mesh with a hole; ms per item (HR +
+    LR) against the bound and the plain version."""
+    import torch
+    from surs_tpu_torch import roofline
+    from surs_tpu_torch.data.sampling import MeshData
+    from surs_tpu_torch.ops.containment import (THRESHOLD, winding_number,
+                                                winding_number_ref)
+
+    hr, lr = (MeshData(*body_mesh(lv)) for lv in (HR_LEVEL, LR_LEVEL))
+    pts = item_draw(hr, lr)
+    dev = torch.device("cuda")
+
+    def tris_of(mesh, faces=None):
+        f = mesh.faces if faces is None else faces
+        return torch.from_numpy(np.ascontiguousarray(
+            mesh.verts[f])).to(dev)
+
+    p = torch.from_numpy(pts).to(dev)
+    t_hr, t_lr = tris_of(hr), tris_of(lr)
+    cen = (hr.verts[hr.faces].mean(1))
+    hole = hr.faces[~((cen[:, 1] > 150) & (np.abs(cen[:, 0]) < 20))]
+    degenerate = np.repeat(lr.verts[lr.faces[:150, :1]], 3, axis=1)
+    sliver = lr.verts[lr.faces[150:300]].copy()
+    sliver[:, 2] = sliver[:, 1]
+    cases = {
+        "hr": (p, t_hr), "lr": (p, t_lr),
+        "ragged_open": (p, tris_of(hr, hr.faces[:-37])),
+        "zero_area": (p, torch.cat([t_lr, torch.from_numpy(np.concatenate(
+            [degenerate, sliver]).astype(np.float32)).to(dev)])),
+        "on_vertex": (torch.from_numpy(np.concatenate(
+            [hr.verts[::40], pts[:999]])).to(dev), t_hr),
+        "hole": (p, tris_of(hr, hole)),
+    }
+    rec = {"phase": "containment", "points": len(pts),
+           "faces_hr": len(hr.faces), "faces_lr": len(lr.faces),
+           "tol": WIND_TOL, "cases": {}}
+    for name, (q, t) in cases.items():
+        wk = winding_number(q, t)
+        wp = winding_number_ref(q, t)
+        torch.cuda.synchronize()
+        band = (wp.abs() - THRESHOLD).abs() <= WIND_TOL
+        flips = ((wk.abs() > THRESHOLD) != (wp.abs() > THRESHOLD)) & ~band
+        rec["cases"][name] = {
+            "points": q.shape[0], "tris": t.shape[0],
+            "max_abs_err": float((wk - wp).abs().max()),
+            "near_cut": int(band.sum()),
+            "label_mismatches": int(flips.sum()),
+            "inside": int((wp.abs() > THRESHOLD).sum())}
+    timing = {}
+    for name, t in (("hr", t_hr), ("lr", t_lr)):
+        timing[f"ms_{name}"] = time_cuda(lambda: winding_number(p, t), 5)
+        timing[f"plain_ms_{name}"] = time_cuda(
+            lambda: winding_number_ref(p, t), 1, warm=0)
+    flops = nbytes = 0.0
+    for faces in (len(hr.faces), len(lr.faces)):
+        f, b = roofline.containment_work(len(pts), faces)
+        flops, nbytes = flops + f, nbytes + b
+    bound_ms, bound_by = roofline.bound(flops, nbytes, "float32")
+    timing.update(ms=timing["ms_hr"] + timing["ms_lr"],
+                  plain_ms=timing["plain_ms_hr"] + timing["plain_ms_lr"],
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  gflop=flops / 1e9)
+    timing["roofline_share"] = bound_ms / timing["ms"]
+    rec["timing"] = timing
+    emit(rec)
+    bad = {k: v for k, v in rec["cases"].items()
+           if not (v["max_abs_err"] <= WIND_TOL
+                   and v["label_mismatches"] == 0)}
+    if bad or rec["cases"]["hr"]["inside"] == 0:
+        raise AssertionError(f"containment failed: {bad or rec}")
+    return rec
+
+
+class _Timed:
+    """Wrap module attributes (functions) so that each call's seconds
+    add to ``secs[bucket]``; restored on exit."""
+
+    def __init__(self, targets):
+        self.targets, self.secs, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for module, name, bucket in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+
+            def timed(*a, _fn=fn, _bucket=bucket, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.secs[_bucket] = (self.secs.get(_bucket, 0.0)
+                                          + time.perf_counter() - t0)
+            setattr(module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+
+
+def item_parts(cfg, n: int = 6) -> dict:
+    """Seconds of ``n`` training items by part, built one after another
+    (no loader) with the containment on the card: mesh load, image (load
+    and process_render), containment (both meshes), the rest of the
+    sampling, the whole item. Items 0 and 1 load their subjects'
+    meshes; the medians are over the later ones."""
+    import torch
+    from surs_tpu_torch.data import datasets, sampling
+    parts = {"mesh_load": [], "image": [], "containment": [],
+             "sampling": [], "item": []}
+    ds = datasets.TrainDataset(cfg, "train", yaw_list=DATA_YAWS)
+    for i in range(n):
+        with _Timed([(datasets, "load_obj", "mesh_load"),
+                     (datasets, "load_render_mask_pil", "image"),
+                     (datasets, "process_render", "image"),
+                     (sampling, "contains", "containment"),
+                     (datasets, "sample_points_and_labels", "sampling")]
+                    ) as tm:
+            t0 = time.perf_counter()
+            ds.get_item(i, np.random.default_rng(SEED + i))
+            torch.cuda.synchronize()
+            tm.secs["item"] = time.perf_counter() - t0
+        tm.secs["sampling"] = tm.secs.get("sampling", 0.0) \
+            - tm.secs.get("containment", 0.0)
+        for k in parts:
+            parts[k].append(tm.secs.get(k, 0.0))
+    out = {f"{k}_s": v for k, v in parts.items()}
+    out.update({f"median_{k}_s": float(np.median(v[2:]))
+                for k, v in parts.items() if k != "mesh_load"})
+    out["first_item_s"] = parts["item"][0]
+    out["first_mesh_load_s"] = parts["mesh_load"][0]
+    out["containment_share"] = (out["median_containment_s"]
+                                / out["median_item_s"])
+    return out
+
+
+class _StepClock:
+    """Time every fused step (synchronized, with its loss) and every wait
+    of the training loop for its next batch, by wrapping
+    make_fused_train_step and DataLoader.__iter__; restored on exit."""
+
+    def __enter__(self):
+        import torch
+        from surs_tpu_torch.data.loader import DataLoader
+        from surs_tpu_torch.train import fused_step
+        self.marks, self.waits = [], []
+        self.saved = (fused_step.make_fused_train_step, DataLoader.__iter__)
+        make, it = self.saved
+
+        def make_timed(model, opt):
+            fn = make(model, opt)
+
+            def step(state, batch):
+                state, metrics = fn(state, batch)
+                torch.cuda.synchronize()
+                self.marks.append((time.perf_counter(),
+                                   float(metrics["total"])))
+                return state, metrics
+            return step
+
+        def timed_iter(loader):
+            gen = it(loader)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(gen)
+                except StopIteration:
+                    return
+                self.waits.append(time.perf_counter() - t0)
+                yield batch
+
+        fused_step.make_fused_train_step = make_timed
+        DataLoader.__iter__ = timed_iter
+        return self
+
+    def __exit__(self, *exc):
+        from surs_tpu_torch.data.loader import DataLoader
+        from surs_tpu_torch.train import fused_step
+        fused_step.make_fused_train_step, DataLoader.__iter__ = self.saved
+
+    def record(self, t0: float) -> dict:
+        times = np.diff([t0] + [t for t, _ in self.marks])
+        losses = [loss for _, loss in self.marks]
+        return {"steps": len(times), "warmup_s": float(times[0]),
+                "seconds_per_step": float(np.median(times[1:])),
+                "step_s": [float(t) for t in times],
+                "data_wait_s": [float(w) for w in self.waits],
+                "median_data_wait_s": float(np.median(self.waits[1:])),
+                "losses": losses}
+
+
+def train_data_argv(dataroot: str, out_dir: str, name: str) -> list:
+    """The train CLI at full width on the on-disk dataset: loadSize 512,
+    batch 2, 6,000 points, 3 lr stacks, the fused step, every geometric
+    augmentation and ColorJitter, one epoch, meshes at 512^3 in the
+    default box."""
+    return ["--dataroot", dataroot, "--name", name,
+            "--checkpoints_path", os.path.join(out_dir, "checkpoints"),
+            "--results_path", os.path.join(out_dir, "results"),
+            "--loadSize", "512", "--hg_dim", "256", "--num_stack_lr", "3",
+            "--batch_size", str(TRAIN_BATCH),
+            "--num_sample_inout", str(TRAIN_POINTS), "--sigma", "5.0",
+            "--fused_train", "--random_flip", "--random_scale",
+            "--random_trans", "--aug_bri", "0.2", "--aug_con", "0.2",
+            "--aug_sat", "0.1", "--aug_hue", "0.05", "--num_epoch", "1",
+            "--resolution", "512", "--seed", str(SEED),
+            "--yaw_list", *map(str, DATA_YAWS)]
+
+
+def phase_train_data(out_dir: str):
+    """Training from the on-disk dataset through the train CLI's main():
+    the dataset written, one item's parts timed, then one epoch (24
+    items, 12 steps) with the epoch-end checkpoint and the four OBJ files
+    of the meshes at 512^3. The winding-number kernel's, K2's and K1's
+    launch counts are zeroed just before main() and read just after."""
+    import torch
+    from surs_tpu_torch.apps import train_surs
+    from surs_tpu_torch.config import build_parser, config_from_args
+    from surs_tpu_torch.ops.containment import winding_number
+    from surs_tpu_torch.ops.fused_mlp import (fused_dual_mlp,
+                                              fused_dual_mlp_train)
+
+    dataroot = os.path.join(out_dir, "train_data")
+    t0 = time.perf_counter()
+    sizes = write_train_dataset(dataroot)
+    rec = {"phase": "train_data", "dataset_write_s": time.perf_counter() - t0,
+           **sizes, "subjects": len(DATA_STRETCH), "yaws": len(DATA_YAWS)}
+    argv = train_data_argv(dataroot, out_dir, "train_data")
+    cfg = config_from_args(build_parser().parse_args(
+        argv[:argv.index("--yaw_list")]))
+    rec["item"] = item_parts(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _StepClock() as clock:
+        winding_number.launches = 0          # main path starts here
+        fused_dual_mlp_train.launches = 0
+        fused_dual_mlp.launches = 0
+        t0 = time.perf_counter()
+        out = train_surs.main(argv)
+        torch.cuda.synchronize()
+        launches = {"winding_number": winding_number.launches,
+                    "k2": fused_dual_mlp_train.launches,
+                    "k1": fused_dual_mlp.launches}   # main path ends here
+        wall = time.perf_counter() - t0
+    steps = clock.record(t0)
+    results = os.path.join(out_dir, "results", "train_data")
+    objs = {f: os.path.getsize(os.path.join(results, f))
+            for f in sorted(os.listdir(results)) if f.endswith(".obj")}
+    ckpts = sorted(os.listdir(os.path.join(out_dir, "checkpoints",
+                                           "train_data")))
+    rec.update(steps, launches=launches, wall_s=wall,
+               data_sec=out["data_sec"], data_sec_per_step=out["data_sec"]
+               / out["iters"], save_s=out["save_sec"], iters=out["iters"],
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, objs=objs, checkpoints=ckpts)
+    emit(rec)
+    n_items = len(DATA_STRETCH) * len(DATA_YAWS)
+    if not (out["iters"] == n_items // TRAIN_BATCH
+            and launches["k2"] == cfg.num_stack_lr * out["iters"]
+            and launches["k1"] > 0
+            and launches["winding_number"] == 2 * (n_items + 2)
+            and all(np.isfinite(rec["losses"])) and len(objs) == 4
+            and "netG_latest" in ckpts):
+        raise AssertionError(f"train_data failed: {rec}")
+    clear_objs(results)
+    torch.cuda.empty_cache()
+    return dataroot, argv, rec
+
+
+def phase_precompute(out_dir: str, dataroot: str, argv: list, fed: dict):
+    """precompute_samples on the card (draws a second), then
+    PRECOMPUTE_STEPS fused steps trained from the cache (no containment
+    launch), their data wait beside train_data's."""
+    import torch
+    from surs_tpu_torch.apps import precompute_samples
+    from surs_tpu_torch.config import build_parser, config_from_args
+    from surs_tpu_torch.ops.containment import winding_number
+    from surs_tpu_torch.ops.fused_mlp import fused_dual_mlp_train
+    from surs_tpu_torch.train.loop import train
+
+    winding_number.launches = 0
+    t0 = time.perf_counter()
+    written = precompute_samples.main(
+        ["--dataroot", dataroot, "--num_sample_inout", str(TRAIN_POINTS),
+         "--sigma", "5.0", "--draws", str(PRECOMPUTE_DRAWS)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rec = {"phase": "precompute", "draws": written, "seconds": secs,
+           "draws_per_s": written / secs,
+           "precompute_launches": winding_number.launches}
+    flags = argv[:argv.index("--yaw_list")]
+    cfg = config_from_args(build_parser().parse_args(
+        flags + ["--name", "precompute"]))
+    with _StepClock() as clock:
+        winding_number.launches = 0
+        fused_dual_mlp_train.launches = 0
+        t0 = time.perf_counter()
+        out = train(cfg, max_iters=PRECOMPUTE_STEPS, yaw_list=DATA_YAWS)
+        torch.cuda.synchronize()
+        launches = {"winding_number": winding_number.launches,
+                    "k2": fused_dual_mlp_train.launches}
+    rec.update(clock.record(t0), launches=launches,
+               data_sec_per_step=out["data_sec"] / out["iters"],
+               train_data_median_data_wait_s=fed["median_data_wait_s"],
+               train_data_data_sec_per_step=fed["data_sec_per_step"])
+    emit(rec)
+    if not (written == PRECOMPUTE_DRAWS * len(DATA_STRETCH)
+            and rec["precompute_launches"] == 2 * written
+            and launches["winding_number"] == 0
+            and launches["k2"] == cfg.num_stack_lr * PRECOMPUTE_STEPS
+            and all(np.isfinite(rec["losses"]))):
+        raise AssertionError(f"precompute failed: {rec}")
+    return rec
+
+
+PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "containment", "serve",
+          "check", "stages", "native_io", "cli", "eval", "dense", "runs",
+          "train", "train_check", "train_data", "precompute")
 # run only when named in --phases
 EXTRA_PHASES = ("train_profile", "serve_profile")
 
@@ -1727,7 +2238,8 @@ def main() -> int:
     k4 = phase_k4() if "k4" in phases else None
     subjects = [synthetic_subject(i) for i in range(3)]
     k5 = phase_k5(subjects) if "k5" in phases else None
-    serve = dense = runs = tr = None
+    cont = phase_containment() if "containment" in phases else None
+    serve = dense = runs = tr = fed = None
     with tempfile.TemporaryDirectory() as out_dir:
         if "serve" in phases:
             service, subjects, serve = phase_serve(out_dir)
@@ -1756,6 +2268,12 @@ def main() -> int:
                 phase_train_check(cfg, items, trained)
             if "train_profile" in phases:
                 phase_train_profile(cfg, items, trained)
+            del trained
+            torch.cuda.empty_cache()
+        if "train_data" in phases or "precompute" in phases:
+            dataroot, argv, fed = phase_train_data(out_dir)
+            if "precompute" in phases:
+                phase_precompute(out_dir, dataroot, argv, fed)
     if set(phases) != set(PHASES):
         emit({"partial": phases})
         return 0
@@ -1833,6 +2351,23 @@ def main() -> int:
         "library_ms": k5["timing"]["cold_ms"]["index_select"],
         "library_cold_clean_ms":
             k5["timing"]["cold_clean_ms"]["index_select"],
+    }]})
+    emit({"port_kernels": [{
+        "name": "winding_number",
+        "route": "cuda",
+        "source": "surs_tpu_torch/csrc/winding_number.cu",
+        "replaces": "winding_number, surs_tpu/ops/containment.py:47-67 "
+                    "(a lax.scan that XLA fuses; no pallas_call)",
+        "launches": fed["launches"]["winding_number"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in cont["cases"].values()),
+        "ms": cont["timing"]["ms"],
+        "plain_ms": cont["timing"]["plain_ms"],
+        "bound_ms": cont["timing"]["bound_ms"],
+        "bound_by": cont["timing"]["bound_by"],
+        "library_ms": None,
+        "per": "one training item: 25,500 points against the HR (327,680 "
+               "faces) and the LR (20,480) mesh",
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

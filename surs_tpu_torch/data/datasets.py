@@ -1,19 +1,35 @@
-"""The real-image eval set (counterpart of ``EvalDataset``,
-``surs_tpu/data/datasets.py:266-317``): ``dataroot/image_final/`` and
-``dataroot/mask_final/`` hold ``<name>.{jpg,png}`` pairs, or
-``cfg.img_path`` / ``cfg.mask_path`` name a single image. Images decode
-through ``data/png.py``: PIL where it is installed, the port's own PNG
-reader where it is not (a ``.jpg`` then raises, naming PIL). The
-training set waits for ROADMAP.md A19."""
+"""The training set and the real-image eval set (counterparts of
+``TrainDataset`` and ``EvalDataset``, ``surs_tpu/data/datasets.py``).
+
+  train: dataroot/{RENDER,MASK,PARAM}/<subject>/<yaw>_<pitch>_00.{jpg,png,npy},
+         dataroot/GEO/OBJ/<subject>_{HR,LR}.obj, dataroot/val.txt, and
+         optionally dataroot/SAMPLE_CACHE/<subject>_<draw>.npz
+         (``python -m surs_tpu_torch.apps.precompute_samples``)
+  eval:  dataroot/{image_final,mask_final}/<name>.{jpg,png}, or
+         ``cfg.img_path`` / ``cfg.mask_path`` for a single image
+
+Training items are numpy dicts with NHWC images; their augmentations go
+through PIL (``data/image.py``) and their sample labels through the
+winding-number containment (``ops/containment.py``) on
+``contains_device``. Eval images decode through ``data/png.py``: PIL
+where it is installed, the port's own PNG reader where it is not (a
+``.jpg`` then raises, naming PIL)."""
 
 from __future__ import annotations
 
+import glob
 import os
-from typing import Dict, Tuple
+from collections import OrderedDict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from ..config import resolve_device
+from ..recon.mesh_io import load_obj
+from .calib import AugParams, calib_from_param, sample_aug_params
+from .image import load_render_mask_pil, process_render
 from .png import load_gray, load_rgb
+from .sampling import MeshData, sample_points_and_labels
 
 
 def load_render_mask(render_path: str, mask_path: str
@@ -21,6 +37,190 @@ def load_render_mask(render_path: str, mask_path: str
     """(RGB [H, W, 3], mask [H, W]) uint8, as PIL's ``convert("RGB")``
     and ``convert("L")`` (``surs_tpu/data/image.py:22``)."""
     return load_rgb(render_path), load_gray(mask_path)
+
+
+class TrainDataset:
+    """THuman-style training set (``surs_tpu/data/datasets.py:32-264``,
+    without ``get_color_sampling``: the color branch is ROADMAP.md A11).
+
+    ``phase`` "train" or "test" splits the subjects by ``val.txt``
+    (none listed: both phases hold every subject). Item ``index`` is
+    subject ``index % subjects``, then yaw, then pitch. In the train
+    phase an item draws its augmentations and samples from ``rng``, a
+    fresh OS-seeded generator when none is given; in the test phase from
+    ``default_rng(cfg.seed)``, whatever is passed. Meshes load through
+    the port's native OBJ reader into an LRU cache of ``mesh_cache``
+    subjects' meshes. Samples come from a random cached draw where
+    ``sample_cache_dir`` (default ``dataroot/SAMPLE_CACHE`` when it
+    exists) holds one for the subject, else from the meshes, labelled
+    by ``contains_fn(points, mesh)`` or, without one, by the winding
+    number on ``contains_device`` (CUDA unless named: raises without a
+    GPU)."""
+
+    def __init__(self, cfg, phase: str = "train", mesh_cache: int = 8,
+                 contains_fn=None, sample_cache_dir: Optional[str] = None,
+                 yaw_list=None, contains_device=None):
+        self.cfg = cfg
+        self.is_train = phase == "train"
+        self.root = cfg.dataroot
+        if sample_cache_dir is None:
+            default_cache = os.path.join(cfg.dataroot, "SAMPLE_CACHE")
+            sample_cache_dir = default_cache if os.path.isdir(
+                default_cache) else None
+        self.sample_cache_dir = sample_cache_dir
+        self.RENDER = os.path.join(self.root, "RENDER")
+        self.MASK = os.path.join(self.root, "MASK")
+        self.PARAM = os.path.join(self.root, "PARAM")
+        self.OBJ = os.path.join(self.root, "GEO", "OBJ")
+        self.UV_RENDER = os.path.join(self.root, "UV_RENDER")
+        self.B_MIN = np.asarray(cfg.b_min, dtype=float)
+        self.B_MAX = np.asarray(cfg.b_max, dtype=float)
+        self.yaw_list = list(yaw_list) if yaw_list is not None \
+            else list(range(0, 360, 1))
+        self.pitch_list = [0]
+        self.subjects = self._get_subjects()
+        self._mesh_cache: OrderedDict = OrderedDict()
+        self._mesh_cache_size = mesh_cache
+        self._contains_fn = contains_fn
+        self.contains_device = (resolve_device(contains_device)
+                                if contains_fn is None else None)
+        self._sample_cache_paths: Dict[str, list] = {}
+        if cfg.num_sample_color and os.path.isdir(self.UV_RENDER):
+            raise NotImplementedError(
+                "color samples from UV renders (num_sample_color > 0) are "
+                "not ported yet (ROADMAP.md A11 color branch)")
+
+    def _get_subjects(self):
+        all_subjects = os.listdir(self.RENDER)
+        val_path = os.path.join(self.root, "val.txt")
+        # an empty val.txt lists no subject (np.loadtxt would warn)
+        var_subjects = (np.loadtxt(val_path, dtype=str).reshape(-1).tolist()
+                        if os.path.exists(val_path)
+                        and os.path.getsize(val_path) else [])
+        if not var_subjects:
+            return sorted(all_subjects)
+        if self.is_train:
+            return sorted(set(all_subjects) - set(var_subjects))
+        return sorted(var_subjects)
+
+    def __len__(self):
+        return len(self.subjects) * len(self.yaw_list) * len(self.pitch_list)
+
+    def _mesh(self, name: str) -> MeshData:
+        if name not in self._mesh_cache:
+            verts, faces = load_obj(os.path.join(self.OBJ, name))
+            self._mesh_cache[name] = MeshData(verts, faces)
+            while len(self._mesh_cache) > self._mesh_cache_size:
+                self._mesh_cache.popitem(last=False)
+        self._mesh_cache.move_to_end(name)
+        return self._mesh_cache[name]
+
+    def _find(self, folder: str, subject: str, vid: int, pitch: int,
+              exts=("jpg", "png")) -> str:
+        for ext in exts:
+            p = os.path.join(folder, subject, f"{vid}_{pitch}_00.{ext}")
+            if os.path.isfile(p):
+                return p
+        raise FileNotFoundError(f"{folder}/{subject}/{vid}_{pitch}_00")
+
+    def get_item(self, index: int,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
+        if rng is None or not self.is_train:
+            rng = np.random.default_rng(
+                None if self.is_train else self.cfg.seed)
+        sid = index % len(self.subjects)
+        tmp = index // len(self.subjects)
+        yid = tmp % len(self.yaw_list)
+        pid = tmp // len(self.yaw_list)
+        subject = os.path.splitext(self.subjects[sid])[0]
+        pitch = self.pitch_list[pid]
+
+        # multi-view: views spread evenly around yid
+        V = self.cfg.num_views
+        n_yaw = len(self.yaw_list)
+        if self.cfg.random_multiview and self.is_train:
+            vids = list(rng.choice(self.yaw_list, V, replace=False))
+        else:
+            vids = [self.yaw_list[(yid + n_yaw // V * off) % n_yaw]
+                    for off in range(V)]
+
+        views = {k: [] for k in ("img_HR", "img_LR", "mask_HR", "mask_LR",
+                                 "calib", "extrinsic")}
+        S = self.cfg.loadSize
+        for vid in vids:
+            param = np.load(os.path.join(self.PARAM, subject,
+                                         f"{vid}_{pitch}_00.npy"),
+                            allow_pickle=True).item()
+            render, mask = load_render_mask_pil(
+                self._find(self.RENDER, subject, vid, pitch),
+                self._find(self.MASK, subject, vid, pitch,
+                           exts=("png", "jpg")))
+            if self.is_train:
+                pad = int(0.1 * S)
+                aug = sample_aug_params(rng, render.size[0] + 2 * pad,
+                                        render.size[1] + 2 * pad, S,
+                                        self.cfg.random_flip,
+                                        self.cfg.random_scale,
+                                        self.cfg.random_trans)
+            else:
+                aug = AugParams()
+            calib, extrinsic = calib_from_param(param, S, aug)
+            img_hr, img_lr, mask_hr, mask_lr = process_render(
+                render, mask, S, self.is_train, aug, rng,
+                self.cfg.aug_bri, self.cfg.aug_con, self.cfg.aug_sat,
+                self.cfg.aug_hue, self.cfg.aug_blur)
+            for k, v in (("img_HR", img_hr), ("img_LR", img_lr),
+                         ("mask_HR", mask_hr), ("mask_LR", mask_lr),
+                         ("calib", calib), ("extrinsic", extrinsic)):
+                views[k].append(v)
+
+        def pack(key):
+            arrs = views[key]
+            return arrs[0] if V == 1 else np.stack(arrs, axis=0)
+
+        item = {
+            "name": subject,
+            "sid": sid, "yid": yid, "pid": pid,
+            "b_min": self.B_MIN, "b_max": self.B_MAX,
+            "img_HR": pack("img_HR"), "img_LR": pack("img_LR"),
+            "mask_HR": pack("mask_HR"), "mask_LR": pack("mask_LR"),
+            "calib": pack("calib"), "extrinsic": pack("extrinsic"),
+        }
+        if self.cfg.num_sample_inout:
+            cached = self._load_cached_samples(subject, rng)
+            if cached is not None:
+                item.update(cached)
+            else:
+                item.update(sample_points_and_labels(
+                    self._mesh(subject + "_HR.obj"),
+                    self._mesh(subject + "_LR.obj"),
+                    self.cfg.num_sample_inout, self.cfg.sigma, self.B_MIN,
+                    self.B_MAX, rng, contains_fn=self._contains_fn,
+                    device=self.contains_device))
+        return item
+
+    def _load_cached_samples(self, subject: str,
+                             rng: np.random.Generator) -> Optional[Dict]:
+        """A random precomputed draw of the subject (the first one in the
+        test phase), or None without a cache or a draw."""
+        if not self.sample_cache_dir:
+            return None
+        paths = self._sample_cache_paths.get(subject)
+        if paths is None:
+            paths = sorted(glob.glob(os.path.join(
+                self.sample_cache_dir, f"{subject}_*.npz")))
+            self._sample_cache_paths[subject] = paths
+        if not paths:
+            return None
+        pick = paths[0] if not self.is_train else \
+            paths[int(rng.integers(len(paths)))]
+        with np.load(pick) as z:
+            return {k: z[k] for k in
+                    ("samples_HR", "samples_LR", "labels_HR",
+                     "labels_disp")}
+
+    def __getitem__(self, index):
+        return self.get_item(index)
 
 
 class EvalDataset:

@@ -112,5 +112,14 @@ class ResBlock(nn.Module):
         return x + self.conv1(F.relu(self.conv0(x))) * self.res_scale
 
 
+def leaky_relu(x, slope: float):
+    """LeakyReLU with the JAX package's gradient: 1 at x = 0 (flax's
+    ``leaky_relu`` is ``where(x >= 0, x, slope * x)``), where
+    ``F.leaky_relu`` takes ``slope``. The values are equal; the gradients
+    differ wherever a pre-activation is exactly 0, as it is across the
+    zero background of masked images."""
+    return torch.where(x >= 0, x, slope * x)
+
+
 def leaky_relu_02(x):
-    return F.leaky_relu(x, 0.2)
+    return leaky_relu(x, 0.2)

@@ -14,7 +14,8 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
+
+from .layers import leaky_relu
 
 
 class SurfaceClassifier(nn.Module):
@@ -37,5 +38,5 @@ class SurfaceClassifier(nn.Module):
             inp = torch.cat([y, feature], -1) if i in self.res_layers else y
             y = getattr(self, f"conv{i}")(inp)
             if i != n_layers - 1:
-                y = F.leaky_relu(y, 0.01)
+                y = leaky_relu(y, 0.01)
         return torch.sigmoid(y)

@@ -1,5 +1,6 @@
 """Least times (roofline bounds) of the repository's five TPU kernels
-(K1-K5) on one NVIDIA H100 SXM, from their shapes alone.
+(K1-K5), and of the port's winding-number kernel, on one NVIDIA H100
+SXM, from their shapes alone.
 
 A kernel's bound is the larger of two times: the bytes it must move
 (each input read once, each output written once) over the card's
@@ -12,7 +13,9 @@ per point; K3 and K4 run the feature products once per column (or
 window) and only the hidden chain per depth sample; K5 only moves rows.
 K2 is float32-accurate on the tensor cores by 3xTF32 (three TF32
 products per float32 product): its bound counts the same multiply-adds
-three times at the TF32 peak, beside the float32 FMA bound.
+three times at the TF32 peak, beside the float32 FMA bound. The winding
+number (``containment_work``) runs outside the tensor cores, at the
+float32 peak.
 
     python -m surs_tpu_torch.roofline     # the table at main-path shapes
 
@@ -128,6 +131,27 @@ def k5_work(rows: int, n_idx: int, channels: int, elem_bytes: int = 2):
     return 0.0, float(nbytes)
 
 
+# operations of one point-triangle pair of the winding number
+# (csrc/winding_number.cu): 9 subtractions (a, b, c), 3 x 5 for the
+# squared lengths, 3 square roots, 9 for b x c and 5 for a . (b x c),
+# 3 x 5 for the dot products, 8 for the denominator, an arctangent, and
+# 2 to double it and add it; each square root and arctangent counted as
+# one operation, so the bound is a floor
+CONTAINMENT_PAIR_OPS = 9 + 15 + 3 + 9 + 5 + 15 + 8 + 1 + 2
+# the training sample draw: 4N surface points + N/4 uniform ones at
+# N = 6,000 (data/sampling.py)
+CONTAINMENT_POINTS = 4 * 6_000 + 6_000 // 4
+
+
+def containment_work(points: int, faces: int):
+    """The winding number of ``points`` query points against a mesh of
+    ``faces`` triangles: CONTAINMENT_PAIR_OPS a pair; the points [P, 3]
+    and the triangles [T, 3, 3] float32 read once, [P] float32
+    written."""
+    nbytes = points * 3 * 4 + faces * 9 * 4 + points * 4
+    return float(CONTAINMENT_PAIR_OPS) * points * faces, float(nbytes)
+
+
 # the shapes each kernel's main path gives it
 MAIN_PATH = {
     "K1": ("fused_dual_mlp, 50,000 points per call, bf16 weights",
@@ -144,6 +168,10 @@ MAIN_PATH = {
            "bf16 weights", lambda: k4_work(32_768, 8), "bfloat16"),
     "K5": ("vmem_gather_probe, 49,152 rows of a [16384, 256] bf16 map",
            lambda: k5_work(16_384, 49_152, 256), "bfloat16"),
+    "winding_number": ("containment of one training item's 25,500 "
+                       "points against a 327,680-face HR mesh, float32",
+                       lambda: containment_work(CONTAINMENT_POINTS,
+                                                327_680), "float32"),
 }
 
 

@@ -1,18 +1,27 @@
 """Training loop driver (counterpart of ``surs_tpu/train/loop.py``).
 
-``train(cfg, loader)`` builds the model and optimizer for a config,
-resumes as the reference does (including its inverted
+``train(cfg)`` builds the train and test ``TrainDataset`` of
+``cfg.dataroot`` and their ``DataLoader`` (before the model, so that
+worker processes fork without a CUDA context), then the model and
+optimizer; resumes as the reference does (including its inverted
 ``continue_train == 0`` convention), and runs the epochs: the lagged
 loss/ETA log line, checkpoints every ``freq_save`` iterations and at each
 epoch end, the PLY dumps every ``freq_save_ply`` iterations, the
-epoch-boundary LR step decay and the per-epoch mesh generation.
+epoch-boundary LR step decay and the per-epoch meshes of the first
+``num_gen_mesh_test`` test items and train items (the latter without
+augmentation).
 
-The loader is an argument: any iterable with ``len`` of collated batches
-in the training dataset's item format (``img_LR`` [B, S, S, 3],
-``img_HR`` [B, 2S, 2S, 3], ``calib`` [B, 4, 4], ``samples_LR`` /
-``samples_HR`` [B, 3, N], ``labels_disp`` / ``labels_HR`` [B, 1, N]),
-for example ``data.loader.DataLoader`` over a dataset of such items. The
-on-disk ``TrainDataset`` is not ported yet (ROADMAP.md A19).
+The sample labels' containment runs where the items are built: with
+``num_workers == 0`` on the training device (in the loader's prefetch
+thread, on a stream of its own), with worker processes on the CPU,
+which is printed (the workers hide the GPUs).
+
+A ``loader`` may be passed instead: any iterable with ``len`` of
+collated batches in the training dataset's item format (``img_LR``
+[B, S, S, 3], ``img_HR`` [B, 2S, 2S, 3], ``calib`` [B, 4, 4],
+``samples_LR`` / ``samples_HR`` [B, 3, N], ``labels_disp`` /
+``labels_HR`` [B, 1, N]); the epoch meshes then need ``gen_items`` or
+``no_gen_mesh``.
 
 ``--fused_train`` on CUDA takes the fused step (kernel K2); every other
 case, the CPU included, takes the plain step. The JAX package's packed
@@ -30,6 +39,8 @@ import numpy as np
 import torch
 
 from ..config import SuRSConfig, resolve_config, resolve_device
+from ..data.datasets import TrainDataset
+from ..data.loader import DataLoader
 from ..models.surs_net import surs_net_from_config
 from ..ops.fused_mlp import prepare_fused_weights
 from ..recon.mesh_io import save_samples_truncted_prob
@@ -107,33 +118,73 @@ def _gen_meshes(cfg, model, device, gen_items, epoch: int) -> None:
                 f"{phase}_eval_epoch{epoch}_{data['name']}.obj"))
 
 
-def train(cfg: SuRSConfig, loader, max_iters: Optional[int] = None,
+def _dataset_gen_items(cfg, train_dataset: TrainDataset,
+                       test_dataset: TrainDataset) -> Dict[str, list]:
+    """The epoch meshes' items: the first ``num_gen_mesh_test`` test
+    items, and as many train items built without augmentation
+    (``surs_tpu/train/loop.py:248-273``)."""
+    n = cfg.num_gen_mesh_test
+    items = {"test": [test_dataset[i] for i in range(n)]}
+    train_dataset.is_train = False
+    try:
+        items["train"] = [train_dataset[i] for i in range(n)]
+    finally:
+        train_dataset.is_train = True
+    return items
+
+
+def train(cfg: SuRSConfig, loader=None, max_iters: Optional[int] = None,
           device=None,
           gen_items: Optional[Mapping[str, Sequence[Mapping]]] = None,
-          on_step: Optional[Callable] = None) -> Dict:
-    """Train ``cfg``'s model on ``loader``'s batches; returns a wall-time
-    summary: iterations, wall seconds, host seconds waiting for data,
-    spent in the step call (the card may still be running it), saving
-    checkpoints, logging, preparing batches and writing PLYs.
+          on_step: Optional[Callable] = None, yaw_list=None) -> Dict:
+    """Train ``cfg``'s model; returns a wall-time summary: iterations,
+    wall seconds, host seconds waiting for data, spent in the step call
+    (the card may still be running it), saving checkpoints, logging,
+    preparing batches and writing PLYs.
 
-    ``device``: CUDA unless named (``"cpu"`` to opt out); raises when no
-    GPU is present. ``gen_items``: {"test": [...], "train": [...]}
-    evaluation items (``img_LR`` [S, S, 3], ``calib``, ``b_min``,
-    ``b_max``, ``name``, optionally ``mask_LR``) for the per-epoch
-    meshes; without them ``cfg.no_gen_mesh`` must be set. ``on_step``:
+    ``loader``: None builds the datasets of ``cfg.dataroot`` (views
+    ``yaw_list``, default every degree) and their loader; else an
+    iterable of collated batches. ``device``: CUDA unless named
+    (``"cpu"`` to opt out); raises when no GPU is present. ``gen_items``:
+    {"test": [...], "train": [...]} items (``img_LR`` [S, S, 3],
+    ``calib``, ``b_min``, ``b_max``, ``name``, optionally ``mask_LR``)
+    for the per-epoch meshes; by default the datasets' (with a
+    ``loader``: ``cfg.no_gen_mesh`` must then be set). ``on_step``:
     called as ``on_step(state, metrics)`` after every step."""
     t_train0 = time.time()
-    data_sec = net_sec = save_sec = log_sec = prep_sec = ply_sec = 0.0
     device = resolve_device(device)
     cfg = resolve_config(cfg, device)
-    if not cfg.no_gen_mesh and gen_items is None:
-        raise NotImplementedError(
-            "per-epoch mesh generation needs evaluation items, and the "
-            "on-disk training dataset is not ported yet (ROADMAP.md A19); "
-            "pass gen_items= or set no_gen_mesh")
     if cfg.profile_dir:
         raise NotImplementedError(
             "profile_dir is not ported yet (ROADMAP.md A14 utilities)")
+    if loader is not None:
+        if not cfg.no_gen_mesh and gen_items is None:
+            raise ValueError("per-epoch meshes from a given loader need "
+                             "gen_items= (or set no_gen_mesh)")
+        return _run(cfg, loader, max_iters, device, gen_items, on_step,
+                    None, t_train0)
+    # workers hide the GPUs, so their containment runs on the CPU
+    contains_device = device if cfg.num_workers == 0 else torch.device("cpu")
+    print("containment on:", contains_device,
+          f"(num_workers={cfg.num_workers})")
+    datasets = [TrainDataset(cfg, phase, yaw_list=yaw_list,
+                             contains_device=contains_device)
+                for phase in ("train", "test")]
+    loader = DataLoader(datasets[0], batch_size=cfg.batch_size,
+                        shuffle=not cfg.serial_batches,
+                        num_threads=cfg.num_threads,
+                        num_workers=cfg.num_workers, seed=cfg.seed)
+    try:
+        return _run(cfg, loader, max_iters, device, gen_items, on_step,
+                    datasets, t_train0)
+    finally:
+        loader.close()          # the worker processes it started
+
+
+def _run(cfg, loader, max_iters, device, gen_items, on_step, datasets,
+         t_train0: float) -> Dict:
+    """train()'s epochs on a resolved config and a built loader."""
+    data_sec = net_sec = save_sec = log_sec = prep_sec = ply_sec = 0.0
     # float32 means float32: no TF32 in the f32 products and convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -243,5 +294,7 @@ def train(cfg: SuRSConfig, loader, max_iters: Optional[int] = None,
         ckpt.save(state, epoch)
         save_sec += time.time() - t_s
         if not cfg.no_gen_mesh:
-            _gen_meshes(cfg, state.model, device, gen_items, epoch)
+            items = gen_items if gen_items is not None else \
+                _dataset_gen_items(cfg, *datasets)
+            _gen_meshes(cfg, state.model, device, items, epoch)
     return summary()

@@ -40,6 +40,7 @@ from surs_tpu_torch.models.surs_net import SuRSNet
 from surs_tpu_torch.recon.mesh_io import save_samples_truncted_prob
 from surs_tpu_torch.train import losses, optim
 from surs_tpu_torch.train.checkpoint import CheckpointManager
+from surs_tpu_torch.train import loop as train_loop
 from surs_tpu_torch.train.loop import batch_host_arrays, train
 from surs_tpu_torch.train.step import (create_train_state,
                                        denormalize_images,
@@ -558,9 +559,103 @@ def test_train_epoch_end_generates_meshes(tmp_path):
 
 
 def test_train_without_gen_items_raises(tmp_path):
+    """A given loader's epoch meshes need gen_items= (train() builds them
+    from its datasets only when it builds the loader)."""
     loader = DataLoader(train_items(), batch_size=2, shuffle=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A19"):
+    with pytest.raises(ValueError, match="gen_items"):
         train(tiny_cfg(tmp_path, no_gen_mesh=False), loader, device="cpu")
+
+
+# ------------------------------------------------ training from dataroot ---
+@pytest.fixture(scope="module")
+def dataroot(tmp_path_factory):
+    """Two sphere subjects rendered at 32x32 from yaws 0 and 180 by the
+    JAX package (test_torch_dataset.render_tiny_dataset)."""
+    from test_torch_dataset import render_tiny_dataset
+    root = str(tmp_path_factory.mktemp("train_data"))
+    render_tiny_dataset(root)
+    return root
+
+
+def dataroot_flags(dataroot, tmp_path):
+    """A tiny net on the rendered dataset with the epoch meshes at 32^3:
+    command-line flags, and the same as a config."""
+    flags = {"dataroot": dataroot, "loadSize": 32, "num_stack_lr": 1,
+             "num_sample_inout": 32, "sigma": 0.05, "batch_size": 2,
+             "num_epoch": 1, "freq_plot": 1, "freq_save_ply": 0,
+             "resolution": 32, "octree_init_resolution": 8,
+             "num_samples": 4096, "name": "t", "seed": 2,
+             "b_min": [-1.0] * 3, "b_max": [1.0] * 3,
+             "checkpoints_path": str(tmp_path / "ckpt"),
+             "results_path": str(tmp_path / "res")}
+    return flags, SuRSConfig(**flags, random_flip=True, random_scale=True,
+                             random_trans=True)
+
+
+EPOCH_OBJS = ["test_eval_epoch0_subj0_HR.obj", "test_eval_epoch0_subj0_LR.obj",
+              "train_eval_epoch0_subj0_HR.obj",
+              "train_eval_epoch0_subj0_LR.obj"]
+
+
+def test_train_from_dataroot_on_cpu(dataroot, tmp_path, capsys):
+    """train(cfg) with no loader builds the datasets and the loader,
+    trains an epoch (4 items, 2 steps) and writes the checkpoints and the
+    epoch's four OBJ files, from a test item and an unaugmented train
+    item."""
+    _, cfg = dataroot_flags(dataroot, tmp_path)
+    out = train(cfg, device="cpu", yaw_list=[0, 180])
+    assert out["iters"] == 2
+    assert "containment on: cpu (num_workers=0)" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path / "ckpt" / "t")) == [
+        "netG_epoch_0", "netG_latest"]
+    assert sorted(os.listdir(tmp_path / "res" / "t")) == EPOCH_OBJS
+
+
+def test_train_cli_end_to_end(dataroot, tmp_path):
+    """python -m surs_tpu_torch.apps.train_surs on the CPU, with a worker
+    process building the items (its containment on the CPU, printed)."""
+    flags, _ = dataroot_flags(dataroot, tmp_path)
+    argv = ["--device", "cpu", "--yaw_list", "0", "180", "--random_flip",
+            "--num_workers", "1"]
+    for k, v in flags.items():
+        argv += [f"--{k}"] + ([str(x) for x in v] if isinstance(v, list)
+                              else [str(v)])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-m", "surs_tpu_torch.apps.train_surs", *argv],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=root))
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert "containment on: cpu (num_workers=1)" in run.stdout
+    assert "train data size: 2" in run.stdout
+    assert sorted(os.listdir(tmp_path / "ckpt" / "t")) == [
+        "netG_epoch_0", "netG_latest"]
+    assert sorted(os.listdir(tmp_path / "res" / "t")) == EPOCH_OBJS
+
+
+@pytest.mark.parametrize("workers,where", [(0, "cuda"), (1, "cpu")])
+def test_train_containment_device_follows_the_workers(tmp_path, capsys,
+                                                      monkeypatch, workers,
+                                                      where):
+    """On the card the containment runs on the training device without
+    workers, and on the CPU with them (they hide the GPUs), said on
+    stdout. The datasets are the first thing train() builds: nothing
+    here touches CUDA."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def dataset(cfg, phase, yaw_list=None, contains_device=None):
+        seen.append(contains_device)
+        raise Stop
+
+    monkeypatch.setattr(train_loop, "TrainDataset", dataset)
+    with pytest.raises(Stop):
+        train(tiny_cfg(tmp_path, num_workers=workers), device="cuda")
+    assert [d.type for d in seen] == [where]
+    assert f"containment on: {where} (num_workers={workers})" \
+        in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("field,value", [("remat", True),
