@@ -141,6 +141,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
               containment launches a draw), then 6 fused steps trained
               from the cache (no containment launch), their wait for
               data beside train_data's.
+ 17. accuracy: the accuracy loop of surs_tpu_torch/probes/subject_demo.py
+              with 1,000 steps (1,500 there): the capsule humanoid (HR
+              detail 0.012, smooth LR) meshed by marching cubes at 160^3,
+              12 yaws rendered at 512 on the card, a 16-draw sample cache
+              with exact implicit labels, train() at full width (residual
+              SR, 3 lr stacks, --fused_train, lr 4e-4, batch 2, 6,000
+              points, box +-1), then a 512^3 mono reconstruction of view 0
+              with its own calibration, timed by stage; K1's and K2's
+              launch counts zeroed just before and read just after.
+              Chamfer, P2S and normal L2 /
+              cos against the HR ground truth, and the step-0 weights'
+              Chamfer through the same pipeline (all through
+              probes/subject_demo.run); the ground truth's HR-to-LR
+              Chamfer with TF32 on and off (equal); the 12 views rendered
+              on the card against the same renderer on the CPU. Fails
+              unless the meshes are non-empty, the mean loss of the last
+              10 steps is below that of the first 10, the Chamfer is at
+              most 0.085 (5 % of the subject's 1.7-unit height) and at
+              most half the step-0 Chamfer (an empty step-0 mesh counts as
+              infinitely far), the masks agree on 99.9 % of the pixels
+              and RGB within 1 LSB where both are set.
 
 ``--phases`` runs a subset (for debugging; the result line then says
 which ran). Two phases run only when named: ``train_profile`` (a
@@ -2211,9 +2232,114 @@ def phase_precompute(out_dir: str, dataroot: str, argv: list, fed: dict):
     return rec
 
 
+# the accuracy phase: a reduced run of probes/subject_demo.py (1,500
+# steps there); 1,000 full-width fused steps take about 300 s on the card
+ACC_ITERS = 1000
+# 5 % of the subject's 1.7-unit height. Not tightened to 1.5 x a first
+# run: six runs at 1,000 steps read 0.0276-0.0505, the first 0.0289
+ACC_CHAMFER_MAX = 0.085
+ACC_MASK_SHARE = 0.999       # card renders against CPU renders
+ACC_RGB_LSB = 1
+
+
+def check_renders(verts, faces, load_size: int, yaws,
+                  device: str = "cuda") -> dict:
+    """The renderer on the card against the same renderer on the CPU, view
+    by view: the share of pixels whose masks agree, and the largest RGB
+    difference where both masks are set; the card's and the CPU's
+    seconds a view."""
+    import torch
+    from surs_tpu_torch.render import render_views
+
+    out = {"views": len(yaws), "mask_agree": 1.0, "rgb_max_lsb": 0,
+           "params_equal": True}
+    secs = {}
+    views = {}
+    for dev in ("card", "cpu"):
+        t0 = time.perf_counter()
+        views[dev] = list(render_views(verts, faces, load_size, yaws,
+                                       device=device if dev == "card"
+                                       else "cpu"))
+        torch.cuda.synchronize()
+        secs[dev] = (time.perf_counter() - t0) / len(yaws)
+    for (_, rgb_c, m_c, p_c), (_, rgb_h, m_h, p_h) in zip(views["card"],
+                                                          views["cpu"]):
+        both = (m_c > 0) & (m_h > 0)
+        out["mask_agree"] = min(out["mask_agree"],
+                                float((m_c == m_h).mean()))
+        diff = np.abs(rgb_c.astype(int) - rgb_h.astype(int))[both]
+        out["rgb_max_lsb"] = max(out["rgb_max_lsb"],
+                                 int(diff.max()) if diff.size else 0)
+        out["params_equal"] &= all(np.array_equal(p_c[k], p_h[k])
+                                   for k in p_h)
+        out["min_mask_pixels"] = min(out.get("min_mask_pixels", m_c.size),
+                                     int((m_c > 0).sum()))
+    out.update(card_s_per_view=secs["card"], cpu_s_per_view=secs["cpu"])
+    return out
+
+
+def phase_accuracy(out_dir: str, device: str = "cuda"):
+    """The accuracy loop (``probes/subject_demo.run``) at full width with
+    ACC_ITERS steps: the humanoid's dataset rendered on the card,
+    training through train() (K2), a 512^3 mono reconstruction of view 0
+    with the item's calibration (K1), timed by stage, and its Chamfer,
+    P2S and normal error against the HR ground truth, beside the same
+    pipeline's Chamfer at step 0. K1's and K2's launch counts are zeroed
+    just before and read just after. Then the Chamfer of the ground
+    truth's HR and LR meshes with TF32 on and off (equal), and the 12
+    views rendered on the card against the same renderer on the CPU."""
+    import torch
+    from surs_tpu_torch.data.sampling import MeshData
+    from surs_tpu_torch.ops.fused_mlp import (fused_dual_mlp,
+                                              fused_dual_mlp_train)
+    from surs_tpu_torch.probes import subject_demo as sd
+    from surs_tpu_torch.utils.metrics import chamfer_distance
+
+    torch.cuda.synchronize()
+    fused_dual_mlp.launches = 0              # main path starts here
+    fused_dual_mlp_train.launches = 0
+    rec = sd.run(ACC_ITERS, device, work_dir=out_dir)
+    torch.cuda.synchronize()
+    launches = {"k1": fused_dual_mlp.launches,
+                "k2": fused_dual_mlp_train.launches}   # main path ends here
+    rec = {"phase": "accuracy", **rec, "launches": launches}
+    torch.cuda.empty_cache()
+    # the metric must not depend on its caller's TF32 flag
+    hr, lr = (MeshData(*sd.humanoid_mesh(detail, device=device))
+              for detail in (sd.HR_DETAIL, 0.0))
+    flag = torch.backends.cuda.matmul.allow_tf32
+    chamfers = {}
+    try:
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            chamfers[tf32] = chamfer_distance(hr, lr, sd.METRIC_SAMPLES,
+                                              device=device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    rec["gt_hr_lr_chamfer"] = chamfers[False][0]
+    rec["chamfer_tf32_on_equal"] = chamfers[True] == chamfers[False]
+    rec["renders"] = check_renders(hr.verts, hr.faces, rec["load_size"],
+                                   sd.YAWS, device)
+    emit(rec)
+    r = rec["renders"]
+    if not (rec["faces_hr_gt"] > 0 and rec["faces_hr"] > 0
+            and np.isfinite([rec["loss_first"], rec["loss_last"]]).all()
+            and rec["loss_last10"] < rec["loss_first10"]
+            and rec["chamfer"] <= ACC_CHAMFER_MAX
+            and rec["chamfer"] <= 0.5 * rec["step0"]["chamfer"]
+            and rec["chamfer_tf32_on_equal"]
+            and launches["k1"] > 0
+            and launches["k2"] == rec["num_stack_lr"] * ACC_ITERS
+            and r["mask_agree"] >= ACC_MASK_SHARE
+            and r["min_mask_pixels"] > 0
+            and r["rgb_max_lsb"] <= ACC_RGB_LSB and r["params_equal"]):
+        raise AssertionError(f"accuracy failed: {rec}")
+    return rec
+
+
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "containment", "serve",
           "check", "stages", "native_io", "cli", "eval", "dense", "runs",
-          "train", "train_check", "train_data", "precompute")
+          "train", "train_check", "train_data", "precompute", "accuracy")
 # run only when named in --phases
 EXTRA_PHASES = ("train_profile", "serve_profile")
 
@@ -2274,6 +2400,8 @@ def main() -> int:
             dataroot, argv, fed = phase_train_data(out_dir)
             if "precompute" in phases:
                 phase_precompute(out_dir, dataroot, argv, fed)
+        if "accuracy" in phases:
+            phase_accuracy(out_dir)
     if set(phases) != set(PHASES):
         emit({"partial": phases})
         return 0

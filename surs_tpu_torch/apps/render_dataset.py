@@ -1,0 +1,55 @@
+"""Render a training dataset (RENDER / MASK / PARAM) from GEO/OBJ meshes
+(counterpart of ``apps/render_dataset.py``, the same flags, plus
+``--device``).
+
+  python -m surs_tpu_torch.apps.render_dataset --dataroot ./data \
+      --loadSize 512 --yaw_step 1
+
+Every ``<dataroot>/GEO/OBJ/<subject>_HR.obj`` is rendered by the port's
+rasterizer on CUDA (``--device cpu`` to opt out; raises without a GPU).
+``--prt`` (PRT shading, ROADMAP.md A14) and ``--uv`` (the UV-space
+color-supervision renders, ROADMAP.md A11) are not ported and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataroot", required=True,
+                    help="root containing GEO/OBJ/<subject>_HR.obj")
+    ap.add_argument("--loadSize", type=int, default=512)
+    ap.add_argument("--yaw_step", type=int, default=1)
+    ap.add_argument("--patch", type=int, default=16,
+                    help="rasterizer per-face patch (px)")
+    ap.add_argument("--subjects", nargs="*", default=None)
+    ap.add_argument("--prt", action="store_true",
+                    help="PRT shading: not ported (ROADMAP.md A14)")
+    ap.add_argument("--uv", action="store_true",
+                    help="UV-space renders: not ported (ROADMAP.md A11)")
+    ap.add_argument("--uv_size", type=int, default=512)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default CUDA")
+    return ap
+
+
+def main(argv=None) -> None:
+    from ..render import render_dataset
+
+    args = build_parser().parse_args(argv)
+    if args.uv:
+        raise NotImplementedError(
+            "UV renders (render/uv.py: UV_RENDER / UV_MASK / UV_POS / "
+            "UV_NORMAL) are not ported yet (ROADMAP.md A11 color branch)")
+    obj_dir = os.path.join(args.dataroot, "GEO", "OBJ")
+    render_dataset(obj_dir, args.dataroot, load_size=args.loadSize,
+                   yaw_step=args.yaw_step, patch=args.patch,
+                   subjects=args.subjects, use_prt=args.prt,
+                   device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
 """The port's training data path against the JAX package's, on the CPU:
 calibration and augmentation draws, render processing through PIL,
 point sampling with winding-number labels, TrainDataset items on a tiny
-dataset rendered by surs_tpu.render.dataset_gen.render_dataset (with and
-without a sample cache), precompute_samples' .npz files, and one step of
-the port's train() from its own dataset against the JAX train step.
+dataset rendered by the port's render_dataset (with and without a sample
+cache; the JAX package's renderer writes the same tree),
+precompute_samples' .npz files, and one step of the port's train() from
+its own dataset against the JAX train step.
 
 Tolerances: everything the data path computes in numpy and PIL is equal
 bit for bit (the same calls in the same order on the same draws). The
@@ -35,7 +36,7 @@ from surs_tpu.data.datasets import TrainDataset as JaxTrainDataset
 from surs_tpu.models import SuRSNet as FlaxSuRSNet
 from surs_tpu.recon.mesh_io import save_obj_mesh
 from surs_tpu.recon.tetra import marching_tetrahedra
-from surs_tpu.render.dataset_gen import render_dataset
+from surs_tpu.render.dataset_gen import render_dataset as jax_render_dataset
 from surs_tpu.train.loop import batch_host_arrays as jax_batch_host_arrays
 from surs_tpu.train.step import create_train_state as jax_create_state
 from surs_tpu.train.step import make_train_step as jax_make_train_step
@@ -46,6 +47,7 @@ from surs_tpu_torch.data import TrainDataset
 from surs_tpu_torch.data import calib, ext_transforms, image, sampling
 from surs_tpu_torch.apps import precompute_samples
 from surs_tpu_torch.models.surs_net import surs_net_from_config
+from surs_tpu_torch.render import render_dataset
 from surs_tpu_torch.train import loop
 from surs_tpu_torch.train.checkpoint import CheckpointManager
 from surs_tpu_torch.train.optim import make_optimizer
@@ -76,9 +78,10 @@ def sphere_obj(path, radius_vox, R=16, scale=1.0 / 8):
     save_obj_mesh(path, (np.asarray(verts) - (R - 1) / 2) * scale, faces)
 
 
-def render_tiny_dataset(root):
+def render_tiny_dataset(root, render=None):
     """Two sphere subjects (HR radius 6 and 5.5 voxels, LR 5 and 4.5),
-    rendered at 32x32 from yaws 0 and 180 by the JAX package."""
+    rendered at 32x32 from yaws 0 and 180 by the port's renderer on the
+    CPU (or by ``render(obj_dir, root, **kw)``)."""
     obj_dir = os.path.join(root, "GEO", "OBJ")
     os.makedirs(obj_dir)
     for name, r in (("subj0", 6.0), ("subj1", 5.5)):
@@ -86,7 +89,11 @@ def render_tiny_dataset(root):
         sphere_obj(os.path.join(obj_dir, f"{name}_LR.obj"), r - 1.0)
     with open(os.path.join(root, "val.txt"), "w"):
         pass
-    render_dataset(obj_dir, root, load_size=S, yaw_step=180, patch=32)
+    if render is None:
+        render_dataset(obj_dir, root, load_size=S, yaw_step=180, patch=32,
+                       device="cpu")
+    else:
+        render(obj_dir, root, load_size=S, yaw_step=180, patch=32)
 
 
 @pytest.fixture(scope="module")
@@ -94,6 +101,19 @@ def dataroot(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("torch_data"))
     render_tiny_dataset(root)
     return root
+
+
+def test_fixture_renderers_write_the_same_tree(dataroot, tmp_path):
+    """The fixture's dataset rendered by the JAX package: the same files,
+    the same PARAM dicts; masks equal and the decoded JPEGs within 1 LSB
+    on 99.9 % of the pixels (test_torch_render.py's tolerances)."""
+    from test_torch_render import assert_same_dataset
+    root = str(tmp_path / "jax")
+    render_tiny_dataset(root, render=jax_render_dataset)
+    for sub in ("RENDER", "MASK", "PARAM"):
+        assert os.path.isdir(os.path.join(dataroot, sub, "subj1"))
+        assert_same_dataset(os.path.join(dataroot, sub),
+                            os.path.join(root, sub))
 
 
 def configs(dataroot, **kw):

@@ -570,7 +570,7 @@ def test_train_without_gen_items_raises(tmp_path):
 @pytest.fixture(scope="module")
 def dataroot(tmp_path_factory):
     """Two sphere subjects rendered at 32x32 from yaws 0 and 180 by the
-    JAX package (test_torch_dataset.render_tiny_dataset)."""
+    port's renderer (test_torch_dataset.render_tiny_dataset)."""
     from test_torch_dataset import render_tiny_dataset
     root = str(tmp_path_factory.mktemp("train_data"))
     render_tiny_dataset(root)
