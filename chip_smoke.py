@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
   1. build:   compile every CUDA kernel (K1, K2, K3 and K4 together, K5,
               the winding number: five sources) with nvcc and the host
-              OBJ library with g++
+              mesh library (marching tetrahedra, OBJ I/O) with g++
               from the repository's sources (one compiler per source, in
               parallel), with ptxas' registers, spills
               and warnings per kernel and, where the toolkit has
@@ -79,12 +79,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
               it too, and the bytes must be equal (both timed); the file
               read back (timed) must give the vertices rounded to 4
               decimals and the written winding.
- 9c. cli:     whether PIL imports here; then the CLI (surs_tpu_torch's
+ 9c. tets:    marching tetrahedra on the eval path (runs `serve` first
+              if it was not named): the serve phase's subject-0 fields at
+              512^3 (HR and LR) meshed by marching cubes and marching
+              tetrahedra on the card (synchronised seconds, faces,
+              vertices, peak memory) and by the host library's marching
+              tetrahedra after a copy to the host (seconds of each); the
+              card's tets must equal the host's as sets (quantised
+              vertices, winding-preserving faces). A 128^3 field (every
+              fourth HR point) meshed on the card and on the CPU: the
+              same arrays. Then one served request with
+              mc_algorithm='tets' and one with mc_backend='host' (request
+              seconds, extract_s, write_s, faces, stats["mc"]).
+ 9d. cli:     whether PIL imports here; then the CLI (surs_tpu_torch's
               main(), ``--once``) serves one PNG image + mask pair at 128^3
               on the card at full width with PIL hidden, so it decodes the
               PNGs itself; K1's launch count zeroed just before and read
               just after (> 0), both OBJ files non-empty.
- 9d. eval:    the eval CLI (``surs_tpu_torch.apps.eval_surs.main``) at
+ 9e. eval:    the eval CLI (``surs_tpu_torch.apps.eval_surs.main``) at
               full width and 512^3 on a folder of two PNG pairs
               (image_final/, mask_final/), PIL hidden, loading a
               reference-style state dict synthesized from
@@ -142,20 +154,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
               from the cache (no containment launch), their wait for
               data beside train_data's.
  17. accuracy: the accuracy loop of surs_tpu_torch/probes/subject_demo.py
-              with 1,000 steps (1,500 there): the capsule humanoid (HR
-              detail 0.012, smooth LR) meshed by marching cubes at 160^3,
-              12 yaws rendered at 512 on the card, a 16-draw sample cache
+              with 800 steps (1,500 there): the capsule humanoid (HR
+              detail 0.012, smooth LR) meshed by marching tetrahedra at
+              160^3, 12 yaws rendered at 512 on the card, a 16-draw sample
+              cache
               with exact implicit labels, train() at full width (residual
               SR, 3 lr stacks, --fused_train, lr 4e-4, batch 2, 6,000
               points, box +-1), then a 512^3 mono reconstruction of view 0
-              with its own calibration, timed by stage; K1's and K2's
-              launch counts zeroed just before and read just after.
+              with its own calibration, meshed by marching cubes on the
+              card, timed by stage, and its fields meshed three ways as
+              in `tets` (the card's tets equal to the host's); K1's and
+              K2's launch counts zeroed just before and read just after.
               Chamfer, P2S and normal L2 /
               cos against the HR ground truth, and the step-0 weights'
               Chamfer through the same pipeline (all through
               probes/subject_demo.run); the ground truth's HR-to-LR
-              Chamfer with TF32 on and off (equal); the 12 views rendered
-              on the card against the same renderer on the CPU. Fails
+              Chamfer with TF32 on and off (equal); 4 of the 12 views
+              (every third yaw) rendered on the card against the same
+              renderer on the CPU. Fails
               unless the meshes are non-empty, the mean loss of the last
               10 steps is below that of the first 10, the Chamfer is at
               most 0.085 (5 % of the subject's 1.7-unit height) and at
@@ -275,7 +291,14 @@ F32_SERVICE_TOL = 1e-4
 K5_HR_CHANNELS = 64
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the script's
+    seconds when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1086,7 +1109,9 @@ def phase_stages(service, subjects, out_dir: str, phase: str = "stages"):
         threshold=cfg.threshold, init_resolution=cfg.octree_init_resolution,
         silhouette=m, stats=stats)
     mark()
-    meshes = list(service.rec.extract_pair(sdf_hr, sdf_lr, mat))
+    meshes = list(service.rec.extract_pair(
+        sdf_hr, sdf_lr, mat, mc_backend="device",
+        mc_caps={"algorithm": "cubes"}))
     mark()
     for name, (v, f) in zip(("HR", "LR"), meshes):
         save_obj_mesh(os.path.join(out_dir, f"{phase}_{name}.obj"), v, f)
@@ -1112,7 +1137,9 @@ def phase_native_io(service, subjects, out_dir: str):
     sdf_hr, sdf_lr = service.fields(*subjects[0])
     cfg = service.cfg
     mat = grid_matrix((cfg.resolution,) * 3, cfg.b_min, cfg.b_max)
-    verts, faces = next(service.rec.extract_pair(sdf_hr, sdf_lr, mat))
+    verts, faces = next(service.rec.extract_pair(
+        sdf_hr, sdf_lr, mat, mc_backend="device",
+        mc_caps={"algorithm": "cubes"}))
     del sdf_hr, sdf_lr
     paths = [os.path.join(out_dir, f"native_io_{k}.obj")
              for k in ("native", "ref")]
@@ -1145,6 +1172,146 @@ def phase_native_io(service, subjects, out_dir: str):
         os.remove(p)
     if not (same and round_trip and len(faces) > 0):
         raise AssertionError(f"native_io failed: {rec}")
+    return rec
+
+
+def mesh_set(verts, faces, device: str = "cuda"):
+    """A mesh as sets (tests/test_tetra_device.py's canon_faces,
+    vectorized, sorted on ``device``): the sorted vertex keys (grid
+    coordinates quantised to 1/4096, packed 21 bits an axis) and the
+    faces as key triples in their lexicographically least cyclic
+    rotation (winding kept; canon_faces' rotation to the smallest key,
+    with ties between equal keys broken the same way in both meshes), in
+    lexicographic order."""
+    import torch
+    q = np.rint(np.asarray(verts, np.float64) * 4096.0).astype(np.int64)
+    if q.size and not (q.min() >= 0 and q.max() < 1 << 21):
+        raise AssertionError("mesh_set: grid coordinates out of range")
+    key = torch.from_numpy((q[:, 0] << 42) | (q[:, 1] << 21) | q[:, 2]
+                           ).to(device)
+    fk = key[torch.from_numpy(np.asarray(faces, np.int64)).to(device)]
+
+    def less(a, b):
+        return ((a[:, 0] < b[:, 0]) | ((a[:, 0] == b[:, 0])
+                & ((a[:, 1] < b[:, 1]) | ((a[:, 1] == b[:, 1])
+                                          & (a[:, 2] < b[:, 2])))))
+
+    best = fk
+    for shift in (1, 2):
+        rot = torch.roll(fk, -shift, dims=1)
+        best = torch.where(less(rot, best)[:, None], rot, best)
+    fk = best
+    for col in (2, 1, 0):             # stable sorts: lexicographic order
+        fk = fk[torch.sort(fk[:, col], stable=True).indices]
+    return torch.sort(key).values, fk
+
+
+def same_mesh(va, fa, vb, fb, device: str = "cuda") -> bool:
+    """The same quantised vertex set and winding-preserving face set."""
+    import torch
+    if va.shape != vb.shape or fa.shape != fb.shape:
+        return False
+    (ka, fka), (kb, fkb) = (mesh_set(va, fa, device),
+                            mesh_set(vb, fb, device))
+    return bool(torch.equal(ka, kb) and torch.equal(fka, fkb))
+
+
+def compare_extractors(fields, level: float = 0.5) -> dict:
+    """Each field ({tag: [X, Y, Z] on the card}) meshed three ways:
+    marching cubes and marching tetrahedra on the card (synchronised
+    seconds, faces, vertices; the tets' peak memory above what was
+    allocated before), and the host library's marching tetrahedra after
+    a copy to the host (the copy's and the extraction's seconds). The
+    card's tets must equal the host's as sets (compared on the card)."""
+    import torch
+    from surs_tpu_torch.recon.marching import (extract_isosurface,
+                                               marching_cubes)
+    from surs_tpu_torch.recon.tetra import marching_tetrahedra
+
+    out = {}
+    for tag, sdf in fields.items():
+        rec = {}
+        for algo, fn in (("cubes", marching_cubes),
+                         ("tets", marching_tetrahedra)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            v, f = fn(sdf, level)
+            torch.cuda.synchronize()
+            rec[f"device_{algo}"] = {
+                "s": time.perf_counter() - t0, "faces": int(f.shape[0]),
+                "verts": int(v.shape[0]),
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        dev_v, dev_f = v.cpu().numpy(), f.cpu().numpy()
+        del v, f
+        t0 = time.perf_counter()
+        host = sdf.float().cpu().numpy()
+        t1 = time.perf_counter()
+        hv, hf = extract_isosurface(host, level, "native")
+        rec["host_tets"] = {"s": time.perf_counter() - t1, "copy_s": t1 - t0,
+                            "faces": int(hf.shape[0]),
+                            "verts": int(hv.shape[0])}
+        t0 = time.perf_counter()
+        rec["card_equals_host"] = same_mesh(dev_v, dev_f, hv, hf,
+                                            sdf.device)
+        rec["compare_s"] = time.perf_counter() - t0
+        if not (rec["card_equals_host"] and hf.shape[0] > 0):
+            raise AssertionError(f"card tets != host tets ({tag}): {rec}")
+        out[tag] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tets(service, subjects, out_dir: str):
+    """Marching tetrahedra on the eval path: the serve phase's subject-0
+    fields at 512^3 meshed by the card's cubes and tets and the host's
+    tets (compare_extractors); a 128^3 field's card tets against the
+    same function on the CPU, array for array; then one served request
+    through mc_algorithm='tets' and one through mc_backend='host', each
+    a service of its own (the serve phase's weights: the same seed)."""
+    import torch
+    from surs_tpu_torch.recon.tetra import marching_tetrahedra
+    from surs_tpu_torch.serve import SuRSService
+
+    sdf_hr, sdf_lr = service.fields(*subjects[0])
+    rec = {"phase": "tets", "resolution": service.cfg.resolution,
+           "fields": compare_extractors({"hr": sdf_hr, "lr": sdf_lr})}
+    small = sdf_hr[::4, ::4, ::4].contiguous()
+    del sdf_hr, sdf_lr
+    v_card, f_card = marching_tetrahedra(small, 0.5)
+    v_cpu, f_cpu = marching_tetrahedra(small.cpu(), 0.5)
+    rec["small"] = {"shape": list(small.shape),
+                    "faces": int(f_cpu.shape[0]),
+                    "card_equals_cpu": bool(
+                        torch.equal(v_card.cpu(), v_cpu)
+                        and torch.equal(f_card.cpu(), f_cpu))}
+    del small, v_card, f_card
+    rec["requests"] = {}
+    img, mask = subjects[0]
+    for name, kw in (("tets", {"mc_algorithm": "tets"}),
+                     ("host", {"mc_backend": "host"})):
+        svc = SuRSService(full_width_config(**kw))
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = svc.reconstruct(img, mask, f"tets_{name}", out_dir,
+                                stats=stats)
+        rec["requests"][name] = {
+            "seconds": time.perf_counter() - t0, "mc": stats["mc"],
+            "extract_s": stats["extract_s"], "write_s": stats["write_s"],
+            "faces_hr": stats["faces"][0], "faces_lr": stats["faces"][1],
+            "obj_bytes": [os.path.getsize(p) for p in paths]}
+        del svc
+    clear_objs(out_dir)
+    torch.cuda.empty_cache()
+    emit(rec)
+    req = rec["requests"]
+    if not (rec["small"]["card_equals_cpu"] and rec["small"]["faces"] > 0
+            and req["tets"]["mc"] == "device/tets"
+            and req["host"]["mc"] == "host/tets"
+            and min(req["tets"]["faces_hr"], req["host"]["faces_hr"]) > 0):
+        raise AssertionError(f"tets failed: {rec}")
     return rec
 
 
@@ -2233,11 +2400,16 @@ def phase_precompute(out_dir: str, dataroot: str, argv: list, fed: dict):
 
 
 # the accuracy phase: a reduced run of probes/subject_demo.py (1,500
-# steps there); 1,000 full-width fused steps take about 300 s on the card
-ACC_ITERS = 1000
+# steps there); 1,000 full-width fused steps took 254 s on an H100, so
+# the phase runs 800 to keep the script's time with the tets phase added
+ACC_ITERS = 800
 # 5 % of the subject's 1.7-unit height. Not tightened to 1.5 x a first
-# run: six runs at 1,000 steps read 0.0276-0.0505, the first 0.0289
+# run: six runs at 1,000 steps read 0.0276-0.0505 against a marching
+# cubes truth, 0.0454 against the tets truth
 ACC_CHAMFER_MAX = 0.085
+# the views held card against CPU: every third of the 12 (a CPU render of
+# the 129,616-face tets truth takes 1.3 s)
+ACC_CHECK_YAWS = slice(None, None, 3)
 ACC_MASK_SHARE = 0.999       # card renders against CPU renders
 ACC_RGB_LSB = 1
 
@@ -2286,8 +2458,9 @@ def phase_accuracy(out_dir: str, device: str = "cuda"):
     P2S and normal error against the HR ground truth, beside the same
     pipeline's Chamfer at step 0. K1's and K2's launch counts are zeroed
     just before and read just after. Then the Chamfer of the ground
-    truth's HR and LR meshes with TF32 on and off (equal), and the 12
-    views rendered on the card against the same renderer on the CPU."""
+    truth's HR and LR meshes with TF32 on and off (equal), and 4 of the
+    12 views rendered on the card against the same renderer on the
+    CPU."""
     import torch
     from surs_tpu_torch.data.sampling import MeshData
     from surs_tpu_torch.ops.fused_mlp import (fused_dual_mlp,
@@ -2298,7 +2471,11 @@ def phase_accuracy(out_dir: str, device: str = "cuda"):
     torch.cuda.synchronize()
     fused_dual_mlp.launches = 0              # main path starts here
     fused_dual_mlp_train.launches = 0
-    rec = sd.run(ACC_ITERS, device, work_dir=out_dir)
+    # the trained fields meshed three ways (card cubes and tets, host
+    # tets), the card's tets held to the host's
+    rec = sd.run(ACC_ITERS, device, work_dir=out_dir,
+                 on_fields=lambda hr, lr: compare_extractors({"hr": hr,
+                                                              "lr": lr}))
     torch.cuda.synchronize()
     launches = {"k1": fused_dual_mlp.launches,
                 "k2": fused_dual_mlp_train.launches}   # main path ends here
@@ -2319,7 +2496,7 @@ def phase_accuracy(out_dir: str, device: str = "cuda"):
     rec["gt_hr_lr_chamfer"] = chamfers[False][0]
     rec["chamfer_tf32_on_equal"] = chamfers[True] == chamfers[False]
     rec["renders"] = check_renders(hr.verts, hr.faces, rec["load_size"],
-                                   sd.YAWS, device)
+                                   sd.YAWS[ACC_CHECK_YAWS], device)
     emit(rec)
     r = rec["renders"]
     if not (rec["faces_hr_gt"] > 0 and rec["faces_hr"] > 0
@@ -2338,8 +2515,9 @@ def phase_accuracy(out_dir: str, device: str = "cuda"):
 
 
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "containment", "serve",
-          "check", "stages", "native_io", "cli", "eval", "dense", "runs",
-          "train", "train_check", "train_data", "precompute", "accuracy")
+          "check", "stages", "native_io", "tets", "cli", "eval", "dense",
+          "runs", "train", "train_check", "train_data", "precompute",
+          "accuracy")
 # run only when named in --phases
 EXTRA_PHASES = ("train_profile", "serve_profile")
 
@@ -2367,7 +2545,7 @@ def main() -> int:
     cont = phase_containment() if "containment" in phases else None
     serve = dense = runs = tr = fed = None
     with tempfile.TemporaryDirectory() as out_dir:
-        if "serve" in phases:
+        if "serve" in phases or "tets" in phases:
             service, subjects, serve = phase_serve(out_dir)
             if "check" in phases:
                 phase_check(service, subjects)
@@ -2375,6 +2553,8 @@ def main() -> int:
                 phase_stages(service, subjects, out_dir)
             if "native_io" in phases:
                 phase_native_io(service, subjects, out_dir)
+            if "tets" in phases:
+                phase_tets(service, subjects, out_dir)
             del service
             clear_objs(out_dir)
             torch.cuda.empty_cache()

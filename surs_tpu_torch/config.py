@@ -184,8 +184,12 @@ _BOOL_FIELDS = {
 
 # The port's 'auto' table. Both devices run the same code: the mono
 # octree semantics (recon/evaluator.py) and classic marching cubes on
-# whatever device the field lives on (recon/marching.py); only the
-# precision differs. 'hostloop', 'fused' and 'mono' give identical
+# whatever device the field lives on (recon/marching.py), the JAX
+# package's TPU choice of extractor; only the precision differs. The JAX
+# CPU row's host marching tetrahedra is mc_backend='host' (its
+# mc_algorithm 'tets' the device's marching tetrahedra); 'auto' as a
+# backend is the device with a host fallback on a capacity error, and the
+# port sets no capacity unless asked (recon/pipeline.py extract_pair). 'hostloop', 'fused' and 'mono' give identical
 # fields in the JAX package (tests/test_recon.py:245,620), so all three
 # name the port's one point octree evaluator; 'runs' (the window
 # evaluator, recon/evaluator_runs.py) is opt-in, as in the JAX package.
@@ -200,8 +204,6 @@ AUTO = {
 
 # (knob, value) -> the ROADMAP.md item that ports it
 _UNPORTED = {
-    ("mc_algorithm", "tets"): "A15 marching tetrahedra",
-    ("mc_backend", "host"): "A15 marching tetrahedra (host extractor)",
     ("mc_backend", "sharded"): "A13 multi-device",
     ("with_color", True): "A11 color branch",
     ("norm", "batch"): "A16 batch-norm trunks",
@@ -213,8 +215,8 @@ _PORTED = {
     "feature_dtype": ("float32", "bfloat16"),
     "octree_mode": ("hostloop", "fused", "mono", "runs"),
     "serve_octree_mode": ("hostloop", "fused", "mono", "runs"),
-    "mc_backend": ("device", "auto"),
-    "mc_algorithm": ("cubes",),
+    "mc_backend": ("device", "host", "auto"),
+    "mc_algorithm": ("cubes", "tets"),
 }
 
 

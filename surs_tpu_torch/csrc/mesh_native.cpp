@@ -1,8 +1,15 @@
-// OBJ mesh I/O on the host, in C++: the port's own copy of the writer and
-// reader of the JAX package's native mesh backend (its surs_write_obj,
-// surs_read_obj and surs_free). Host code, not a kernel: it formats and
-// parses text. Built with g++ at first use by ops/cuda_build.py and bound
-// with ctypes by recon/native.py; a plain C interface.
+// Host mesh code in C++: the port's own copy of the JAX package's native
+// mesh backend (csrc/mesh_native.cpp): marching tetrahedra with its
+// growing edge map (surs_marching_tetrahedra), the OBJ writer and reader
+// (surs_write_obj, surs_read_obj) and surs_free. Host code, not a kernel.
+// Built with g++ at first use by ops/cuda_build.py and bound with ctypes
+// by recon/native.py; a plain C interface.
+//
+// Marching tetrahedra is recon/tetra.py's algorithm cell by cell: each
+// cell splits into 6 tetrahedra around the main diagonal, each tet's sign
+// case emits 0-2 triangles, and vertices are interpolated on global edges
+// and welded through an open-addressing hash on the edge key. Vertices
+// come out in first-appearance order, faces cell by cell.
 //
 // The byte format is the reference's save_obj_mesh: vertices "v x y z" with
 // four decimals, each value rounded as |v| * 1e4 + 0.5 truncated with the
@@ -14,9 +21,88 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <cmath>
 #include <vector>
 
 namespace {
+
+// cube corners; tets around the diagonal 0-6; tet edges by local vertex
+const int kCorner[8][3] = {
+    {0, 0, 0}, {1, 0, 0}, {1, 1, 0}, {0, 1, 0},
+    {0, 0, 1}, {1, 0, 1}, {1, 1, 1}, {0, 1, 1}};
+
+const int kTets[6][4] = {
+    {0, 5, 1, 6}, {0, 1, 2, 6}, {0, 2, 3, 6},
+    {0, 3, 7, 6}, {0, 7, 4, 6}, {0, 4, 5, 6}};
+
+const int kTetEdges[6][2] = {{0, 1}, {0, 2}, {0, 3}, {1, 2}, {1, 3}, {2, 3}};
+
+// case (bit i: tet vertex i inside) -> up to 2 triangles of tet-edge ids
+const int kCaseTris[16][2][3] = {
+    {{-1, -1, -1}, {-1, -1, -1}},  // 0
+    {{0, 1, 2}, {-1, -1, -1}},     // 1
+    {{0, 4, 3}, {-1, -1, -1}},     // 2
+    {{1, 2, 4}, {1, 4, 3}},        // 3
+    {{1, 3, 5}, {-1, -1, -1}},     // 4
+    {{0, 3, 5}, {0, 5, 2}},        // 5
+    {{0, 1, 5}, {0, 5, 4}},        // 6
+    {{2, 4, 5}, {-1, -1, -1}},     // 7
+    {{2, 5, 4}, {-1, -1, -1}},     // 8
+    {{0, 5, 4}, {0, 1, 5}},        // 9
+    {{0, 5, 3}, {0, 2, 5}},        // 10
+    {{1, 5, 3}, {-1, -1, -1}},     // 11
+    {{1, 4, 2}, {1, 3, 4}},        // 12
+    {{0, 3, 4}, {-1, -1, -1}},     // 13
+    {{0, 2, 1}, {-1, -1, -1}},     // 14
+    {{-1, -1, -1}, {-1, -1, -1}},  // 15
+};
+
+// Open-addressing hash from edge key (lo * X*Y*Z + hi) to vertex id. It
+// grows at 70 % load: a fixed table degrades to O(n) probes near full and
+// spins forever once full (every slot taken, key absent), which noise-like
+// fields with more crossings than the first guess reach.
+struct EdgeMap {
+  std::vector<uint64_t> keys;
+  std::vector<int64_t> vals;
+  uint64_t mask;
+  size_t used;
+
+  explicit EdgeMap(size_t expected) {
+    size_t cap = 64;
+    while (cap < expected * 2) cap <<= 1;
+    keys.assign(cap, UINT64_MAX);
+    vals.assign(cap, -1);
+    mask = cap - 1;
+    used = 0;
+  }
+
+  void grow() {
+    std::vector<uint64_t> old_keys(keys.size() * 2, UINT64_MAX);
+    std::vector<int64_t> old_vals(vals.size() * 2, -1);
+    old_keys.swap(keys);
+    old_vals.swap(vals);
+    mask = keys.size() - 1;
+    for (size_t j = 0; j < old_keys.size(); ++j) {
+      if (old_keys[j] == UINT64_MAX) continue;
+      uint64_t h = old_keys[j] * 0x9E3779B97F4A7C15ull;
+      size_t i = h & mask;
+      while (keys[i] != UINT64_MAX) i = (i + 1) & mask;
+      keys[i] = old_keys[j];
+      vals[i] = old_vals[j];
+    }
+  }
+
+  // the value slot of key, inserted (-1) if absent
+  int64_t* slot(uint64_t key) {
+    if (used * 10 >= keys.size() * 7) grow();
+    uint64_t h = key * 0x9E3779B97F4A7C15ull;
+    size_t i = h & mask;
+    while (keys[i] != UINT64_MAX && keys[i] != key) i = (i + 1) & mask;
+    if (keys[i] == UINT64_MAX) ++used;
+    keys[i] = key;
+    return &vals[i];
+  }
+};
 
 // '%.4f' of v, rounding half away from zero
 inline char* fmt_fixed4(char* p, double v) {
@@ -59,6 +145,99 @@ inline char* fmt_int(char* p, long long v) {
 extern "C" {
 
 void surs_free(void* p) { std::free(p); }
+
+// The level set vol == level of the field vol [X, Y, Z] (C order), inside
+// where a value > level: *out_verts [*out_nverts, 3] float32 grid
+// coordinates and *out_faces [*out_nfaces, 3] int64, malloc'd, to be freed
+// with surs_free. Returns 0, or 1 when an allocation fails.
+int surs_marching_tetrahedra(const float* vol, int64_t X, int64_t Y,
+                             int64_t Z, float level, float** out_verts,
+                             int64_t* out_nverts, int64_t** out_faces,
+                             int64_t* out_nfaces) {
+  const int64_t YZ = Y * Z;
+  std::vector<float> verts;
+  std::vector<int64_t> faces;
+  verts.reserve(1 << 20);
+  faces.reserve(1 << 20);
+  EdgeMap emap(1 << 20);
+
+  // the id of the vertex on edge (ga, gb), interpolated at first sight
+  auto interp_vertex = [&](int64_t ga, int64_t gb) -> int64_t {
+    uint64_t lo = (uint64_t)(ga < gb ? ga : gb);
+    uint64_t hi = (uint64_t)(ga < gb ? gb : ga);
+    uint64_t key = lo * (uint64_t)(X * YZ) + hi;
+    int64_t* v = emap.slot(key);
+    if (*v >= 0) return *v;
+    double va = vol[ga], vb = vol[gb];
+    double denom = vb - va;
+    if (std::fabs(denom) < 1e-12) denom = 1e-12;
+    double t = (level - va) / denom;
+    t = t < 0.0 ? 0.0 : (t > 1.0 ? 1.0 : t);
+    double ax = (double)(ga / YZ), ay = (double)((ga / Z) % Y),
+           az = (double)(ga % Z);
+    double bx = (double)(gb / YZ), by = (double)((gb / Z) % Y),
+           bz = (double)(gb % Z);
+    int64_t id = (int64_t)(verts.size() / 3);
+    verts.push_back((float)(ax + t * (bx - ax)));
+    verts.push_back((float)(ay + t * (by - ay)));
+    verts.push_back((float)(az + t * (bz - az)));
+    *v = id;
+    return id;
+  };
+
+  for (int64_t x = 0; x + 1 < X; ++x) {
+    for (int64_t y = 0; y + 1 < Y; ++y) {
+      for (int64_t z = 0; z + 1 < Z; ++z) {
+        float cv[8];
+        int64_t gids[8];
+        float vmin = 0.0f, vmax = 0.0f;
+        for (int c = 0; c < 8; ++c) {
+          gids[c] = (x + kCorner[c][0]) * YZ + (y + kCorner[c][1]) * Z +
+                    (z + kCorner[c][2]);
+          cv[c] = vol[gids[c]];
+          vmin = (c == 0 || cv[c] < vmin) ? cv[c] : vmin;
+          vmax = (c == 0 || cv[c] > vmax) ? cv[c] : vmax;
+        }
+        if (!(vmin <= level && vmax > level)) continue;
+        for (int t = 0; t < 6; ++t) {
+          int cs = 0;
+          for (int c = 0; c < 4; ++c)
+            if (cv[kTets[t][c]] > level) cs |= 1 << c;
+          for (int s = 0; s < 2; ++s) {
+            const int* tri = kCaseTris[cs][s];
+            if (tri[0] < 0) continue;
+            int64_t ids[3];
+            for (int c = 0; c < 3; ++c) {
+              int ea = kTetEdges[tri[c]][0], eb = kTetEdges[tri[c]][1];
+              ids[c] = interp_vertex(gids[kTets[t][ea]], gids[kTets[t][eb]]);
+            }
+            if (ids[0] == ids[1] || ids[1] == ids[2] || ids[0] == ids[2])
+              continue;
+            faces.insert(faces.end(), ids, ids + 3);
+          }
+        }
+      }
+    }
+  }
+
+  *out_nverts = (int64_t)(verts.size() / 3);
+  *out_nfaces = (int64_t)(faces.size() / 3);
+  // malloc(0) may return null: allocate at least one element
+  *out_verts = (float*)std::malloc((verts.size() + 1) * sizeof(float));
+  *out_faces = (int64_t*)std::malloc((faces.size() + 1) * sizeof(int64_t));
+  if (!*out_verts || !*out_faces) {
+    std::free(*out_verts);
+    std::free(*out_faces);
+    *out_verts = nullptr;
+    *out_faces = nullptr;
+    return 1;
+  }
+  if (!verts.empty())
+    std::memcpy(*out_verts, verts.data(), verts.size() * sizeof(float));
+  if (!faces.empty())
+    std::memcpy(*out_faces, faces.data(), faces.size() * sizeof(int64_t));
+  return 0;
+}
 
 // verts [nverts, 3] float64, faces [nfaces, 3] int64 (0-based) -> an OBJ
 // file at path. Returns 0, or 1 when the file cannot be opened, 2 when a

@@ -8,9 +8,8 @@ counterpart of the training and scoring part of
 
 1. The subject: the capsule humanoid (``utils/synth.py``), HR with a
    0.012 surface detail and a smooth LR, meshed by the port's marching
-   cubes on ``humanoid_volume`` at 160^3 over [-0.85, 1.0]^3 (the JAX
-   demo meshes the same fields by marching tetrahedra, ROADMAP.md A15,
-   so the two ground truths differ by the tessellation).
+   tetrahedra on ``humanoid_volume`` at 160^3 over [-0.85, 1.0]^3, as
+   the JAX demo meshes it (``benchmarks/subject_demo.py:74-83``).
 2. The dataset: 12 yaws (every 30 degrees) rendered at loadSize 512 by
    the port's renderer, and a sample cache of 16 draws with exact
    implicit labels (``humanoid_sdf_np`` < 0, no mesh containment).
@@ -20,8 +19,9 @@ counterpart of the training and scoring part of
    the 12 yaws repeated so that one epoch spans the run (the trainer
    saves a 0.25 GB checkpoint at every epoch end).
 4. A 512^3 mono reconstruction of view 0 with silhouette pruning through
-   kernel K1, with the item's own calibration, timed by stage (encode,
-   evaluate, extract, write) and as one request.
+   kernel K1, with the item's own calibration, meshed by marching cubes
+   on the card as the JAX demo's reconstruction is, timed by stage
+   (encode, evaluate, extract, write) and as one request.
 5. Chamfer, point-to-surface and normal L2 / cosine of the HR mesh
    against the HR ground truth (``utils/metrics.py``), for the trained
    weights and for the same pipeline at step 0 (the seed's weights).
@@ -58,12 +58,13 @@ P2S_SURFACE = 50000
 
 def humanoid_mesh(detail: float, resolution: int = GT_RES, device=None):
     """(verts [V, 3] float32 world, faces [F, 3] int64) numpy: marching
-    cubes of ``humanoid_volume`` at level 0.5 over [GT_LO, GT_HI]^3."""
-    from ..recon.marching import marching_cubes
+    tetrahedra of ``humanoid_volume`` at level 0.5 over [GT_LO, GT_HI]^3
+    on ``device``, as the JAX demo meshes it."""
+    from ..recon.tetra import marching_tetrahedra
     from ..utils.synth import humanoid_volume
 
     vol = humanoid_volume(resolution, detail, GT_LO, GT_HI, device=device)
-    verts, faces = marching_cubes(vol, 0.5)
+    verts, faces = marching_tetrahedra(vol, 0.5)
     verts = GT_LO + verts.double() * ((GT_HI - GT_LO) / (resolution - 1))
     return verts.float().cpu().numpy(), faces.cpu().numpy()
 
@@ -174,11 +175,13 @@ def view_item(cfg, device=None) -> Dict:
 
 
 def reconstruct(cfg, model, data: Dict, out_dir: str, device,
-                stages: bool = True) -> Dict:
+                stages: bool = True, on_fields=None) -> Dict:
     """The 512^3 mono reconstruction of ``data`` through kernel K1.
     With ``stages``: one warm-up request, then the stages (each ending in
     a synchronize) and one timed request. Returns the HR mesh
-    (``verts``, ``faces``) and the times."""
+    (``verts``, ``faces``) and the times; ``on_fields(sdf_hr, sdf_lr)``,
+    if given, sees the evaluated fields after the extract stage and
+    returns a dict kept under ``"fields"``."""
     from ..recon.mesh_io import save_obj_mesh
     from ..recon.pipeline import build_reconstructor
 
@@ -208,16 +211,19 @@ def reconstruct(cfg, model, data: Dict, out_dir: str, device,
         init_resolution=cfg.octree_init_resolution,
         silhouette=data["mask_LR"], stats=stats)
     mark()
-    meshes = list(rec.extract_pair(sdf_hr, sdf_lr, mat))
+    meshes = list(rec.extract_pair(sdf_hr, sdf_lr, mat, mc_backend="device",
+                                   mc_caps={"algorithm": "cubes"}))
     mark()
+    if on_fields is not None:
+        out["fields"] = on_fields(sdf_hr, sdf_lr)
     del sdf_hr, sdf_lr, feats_lr, feat_hr
     if stages:
+        t0 = time.perf_counter()
         for name, (v, f) in zip(("HR", "LR"), meshes):
             save_obj_mesh(os.path.join(out_dir, f"stages_{name}.obj"), v, f)
-        mark()
         d = np.diff(t)
         out.update(encode_s=d[0], evaluate_s=d[1], extract_s=d[2],
-                   write_s=d[3], mode=stats["mode"],
+                   write_s=time.perf_counter() - t0, mode=stats["mode"],
                    queries=stats["queries"])
         t0 = time.perf_counter()
         rec.gen_mesh(cfg, data, os.path.join(out_dir, "request.obj"))
@@ -270,8 +276,9 @@ def score(verts: np.ndarray, faces: np.ndarray, root: str, calib,
 
 def run(iters: int = ITERS, device=None, work_dir: Optional[str] = None,
         load_size: int = 512, gt_res: int = GT_RES, draws: int = DRAWS,
-        n_inout: int = N_INOUT, **cfg_kw) -> Dict:
-    """The whole loop; returns the record the probe prints."""
+        n_inout: int = N_INOUT, on_fields=None, **cfg_kw) -> Dict:
+    """The whole loop; returns the record the probe prints.
+    ``on_fields`` is :func:`reconstruct`'s, for the trained weights."""
     from ..config import resolve_config, resolve_device
     from ..models.surs_net import surs_net_from_config
 
@@ -305,7 +312,8 @@ def run(iters: int = ITERS, device=None, work_dir: Optional[str] = None,
                       loss_last10=float(np.mean(losses[-10:])),
                       seconds_per_step=trained["seconds_per_step"],
                       train_s=trained["summary"]["wall_sec"])
-        got = reconstruct(cfg, trained["model"], data, tmp, device)
+        got = reconstruct(cfg, trained["model"], data, tmp, device,
+                          on_fields=on_fields)
         record.update({k: v for k, v in got.items()
                        if k not in ("verts", "faces")})
         record.update(score(got["verts"], got["faces"], root, data["calib"],

@@ -1,34 +1,81 @@
-"""Classic marching cubes in torch, on whatever device the field lives
-on (counterpart of ``marching_cubes_classic``,
+"""Isosurface extraction in torch, on whatever device the field lives on:
+classic marching cubes (counterpart of ``marching_cubes_classic``,
 ``surs_tpu/recon/mc_tables.py:136-199``, over the port's own copy of the
-constructed case table).
+constructed case table) and, through the same cell emission, marching
+tetrahedra (``recon/tetra.py``); and the extraction entry point
+``extract_isosurface`` (``surs_tpu/recon/marching.py``), whose default is
+the host library's marching tetrahedra.
 
-Output contract: (verts [V, 3] float32 grid coordinates, faces [F, 3]
-int64), vertices welded on global edge keys, faces in table order. The
-result equals the numpy reference exactly: the welding keeps, for every
-edge key, the LAST triangle corner that names it, as numpy's repeated
--index assignment does, through ``scatter_reduce(amax)`` over the corner
+Output contract of both torch extractors: (verts [V, 3] float32 grid
+coordinates, faces [F, 3] int64), vertices welded on global edge keys in
+sorted key order, faces in (group, slot, cell) emission order. The result
+equals the numpy reference exactly: the welding keeps, for every edge key,
+the LAST triangle corner that names it, as numpy's repeated-index
+assignment does, through ``scatter_reduce(amax)`` over the corner
 positions (``index_put_`` with repeated indices is nondeterministic on
 CUDA).
+
+Torch has no static shapes, so the capacities (``max_cells``,
+``max_tris``, ``max_verts``, ``max_pts``) are off by default; a capacity a
+caller sets raises :class:`CapacityError` when the field exceeds it, as
+the JAX device extractor does (``surs_tpu/recon/tetra_device.py:915``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .mc_tables import _CORNER_OFFSETS, MC_CASE_TRIS, MC_EDGES, MC_MAX_TRIS
+from . import native
+from .mc_tables import _CORNER_OFFSETS, MC_CASE_TRIS, MC_EDGES
 
 
-def marching_cubes(volume: torch.Tensor, level: float
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Isosurface ``volume == level`` of an [X, Y, Z] field; a point is
-    inside where its value > level."""
+class CapacityError(ValueError):
+    """A field needs more cells, points, triangles or vertices than the
+    capacity the caller set."""
+
+
+def _case_ends(corners: Sequence[int], case_tris: np.ndarray,
+               edges: np.ndarray) -> np.ndarray:
+    """A group's table as cube-corner pairs: [2^k, slots, 3, 2], -1 where
+    a slot holds no triangle. ``case_tris`` [2^k, slots, 3] holds edge
+    ids into ``edges`` (pairs of the group's own corners)."""
+    corners = np.asarray(corners, np.int64)
+    ends = corners[edges[np.maximum(case_tris, 0)]]
+    ends[case_tris < 0] = -1
+    return ends
+
+
+# marching cubes: one group of the cube's 8 corners
+CUBE_GROUPS = [(list(range(8)), _case_ends(range(8), MC_CASE_TRIS,
+                                           MC_EDGES))]
+
+
+def _check(name: str, what: str, n: int, cap: Optional[int]) -> None:
+    if cap is not None and n > cap:
+        raise CapacityError(f"{name} capacity exceeded: {what} {n}/{cap}")
+
+
+def march(volume: torch.Tensor, level: float, groups, name: str,
+          cell_chunk: Optional[int] = None, max_cells: Optional[int] = None,
+          max_tris: Optional[int] = None, max_verts: Optional[int] = None,
+          max_pts: Optional[int] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cell emission and welding shared by marching cubes and
+    marching tetrahedra. ``groups`` lists (cube corners [k], case table
+    [2^k, slots, 3, 2] of cube-corner pairs): a cell's case in a group has
+    bit i set where its corner ``corners[i]`` is inside (value > level),
+    and each slot of the case emits one triangle whose vertices lie on
+    the three corner pairs. Triangles come out group by group, slot by
+    slot, cell by cell. ``cell_chunk`` bounds the cells emitted at once
+    (the working set on the card) without changing the result."""
     dev = volume.device
     vol = volume.float().contiguous()
     X, Y, Z = vol.shape
-    offs = torch.as_tensor(_CORNER_OFFSETS, device=dev)
+    empty = (torch.zeros((0, 3), dtype=torch.float32, device=dev),
+             torch.zeros((0, 3), dtype=torch.int64, device=dev))
     cmax = vol[:-1, :-1, :-1]
     cmin = cmax
     for dx, dy, dz in _CORNER_OFFSETS[1:].tolist():
@@ -36,34 +83,52 @@ def marching_cubes(volume: torch.Tensor, level: float
         cmax = torch.maximum(cmax, blk)
         cmin = torch.minimum(cmin, blk)
     active = torch.nonzero((cmin <= level) & (cmax > level))     # [M, 3]
-    if active.shape[0] == 0:
-        return (torch.zeros((0, 3), dtype=torch.float32, device=dev),
-                torch.zeros((0, 3), dtype=torch.int64, device=dev))
+    del cmin, cmax
+    n_cells = active.shape[0]
+    _check(name, "cells", n_cells, max_cells)
+    if n_cells == 0:
+        return empty
 
-    corner = active[:, None, :] + offs[None, :, :]               # [M, 8, 3]
-    gid = (corner[..., 0] * Y + corner[..., 1]) * Z + corner[..., 2]
+    offs = torch.as_tensor(_CORNER_OFFSETS, device=dev)
     flat = vol.reshape(-1)
-    inside = flat[gid] > level
-    case = (inside.long() << torch.arange(8, device=dev)).sum(dim=1)
-
-    case_tris = torch.as_tensor(MC_CASE_TRIS, device=dev)       # [256, 5, 3]
-    edges = torch.as_tensor(MC_EDGES, device=dev)               # [12, 2]
-    keys, ends = [], []
+    tables = [(torch.as_tensor(np.asarray(c), device=dev),
+               torch.as_tensor(t, device=dev)) for c, t in groups]
+    n_slots = [t.shape[1] for _, t in tables]
+    # keys / ends per (group, slot), each a list over the cell chunks
+    keys = [[[] for _ in range(s)] for s in n_slots]
+    ends = [[[] for _ in range(s)] for s in n_slots]
     n_vox = X * Y * Z
-    for slot in range(MC_MAX_TRIS):
-        tris = case_tris[case, slot]                             # [M, 3]
-        has = tris[:, 0] >= 0
-        if not bool(has.any()):
-            continue
-        tris_h = tris[has]
-        g = gid[has]
-        ga = torch.gather(g, 1, edges[tris_h][..., 0])
-        gb = torch.gather(g, 1, edges[tris_h][..., 1])
-        keys.append(torch.minimum(ga, gb) * n_vox + torch.maximum(ga, gb))
-        ends.append(torch.stack([ga, gb], dim=-1))
-    keys = torch.cat(keys).reshape(-1)
-    ends = torch.cat(ends).reshape(-1, 2)
+    step = n_cells if cell_chunk is None else cell_chunk
+    for lo in range(0, n_cells, step):
+        corner = active[lo:lo + step, None, :] + offs[None, :, :]
+        gid = (corner[..., 0] * Y + corner[..., 1]) * Z + corner[..., 2]
+        inside = flat[gid] > level                               # [m, 8]
+        for g, (corners, table) in enumerate(tables):
+            bits = torch.arange(corners.shape[0], device=dev)
+            case = (inside[:, corners].long() << bits).sum(dim=1)
+            for slot in range(n_slots[g]):
+                tri = table[case, slot]                          # [m, 3, 2]
+                has = tri[:, 0, 0] >= 0
+                tri = tri[has]
+                g_has = gid[has]
+                ga = torch.gather(g_has, 1, tri[..., 0])
+                gb = torch.gather(g_has, 1, tri[..., 1])
+                keys[g][slot].append(torch.minimum(ga, gb) * n_vox
+                                     + torch.maximum(ga, gb))
+                ends[g][slot].append(torch.stack([ga, gb], dim=-1))
+    keys = torch.cat([k for per in keys for chunks in per for k in chunks])
+    ends = torch.cat([e for per in ends for chunks in per for e in chunks])
+    _check(name, "tris", keys.shape[0], max_tris)
+    if keys.shape[0] == 0:
+        return empty
+    keys = keys.reshape(-1)
+    ends = ends.reshape(-1, 2)
     uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
+    _check(name, "verts", uniq.shape[0], max_verts)
+    if max_pts is not None:
+        # an edge runs from its componentwise-min lattice point, the
+        # smaller id: the crossing points are the distinct low ends
+        _check(name, "pts", torch.unique(uniq // n_vox).shape[0], max_pts)
     faces = inv.reshape(-1, 3)
     last = torch.zeros(uniq.shape[0], dtype=torch.int64, device=dev)
     last = last.scatter_reduce(0, inv, torch.arange(inv.shape[0], device=dev),
@@ -86,3 +151,31 @@ def marching_cubes(volume: torch.Tensor, level: float
     ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
           & (faces[:, 0] != faces[:, 2]))
     return verts.float(), faces[ok]
+
+
+def marching_cubes(volume: torch.Tensor, level: float, **caps
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Isosurface ``volume == level`` of an [X, Y, Z] field; a point is
+    inside where its value > level. ``caps``: ``cell_chunk`` and the
+    capacities of :func:`march`."""
+    return march(volume, level, CUBE_GROUPS, "marching_cubes", **caps)
+
+
+def extract_isosurface(volume, level: float = 0.5, backend: str = "native"
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """(verts [V, 3] float32 grid coordinates, faces [F, 3] int64) numpy
+    arrays of ``volume == level`` by marching tetrahedra
+    (``surs_tpu/recon/marching.py:13-28``). ``backend``: 'native' (the
+    host library, ``recon/native.py``; the field is copied to the host),
+    'torch' (``recon/tetra.py`` on the field's device) or 'auto', which is
+    'native': the port always builds its host library, and a missing
+    compiler raises rather than switching to the torch version."""
+    if backend in ("native", "auto"):
+        if isinstance(volume, torch.Tensor):
+            volume = volume.detach().float().cpu().numpy()
+        return native.marching_tetrahedra(volume, level)
+    if backend == "torch":
+        from .tetra import marching_tetrahedra     # tetra imports march
+        verts, faces = marching_tetrahedra(torch.as_tensor(volume), level)
+        return verts.cpu().numpy(), faces.cpu().numpy()
+    raise ValueError(f"unknown extraction backend {backend!r}")

@@ -1,6 +1,6 @@
 """ctypes bindings of the port's host mesh library
 (``csrc/mesh_native.cpp``, counterpart of ``surs_tpu/recon/native.py``):
-the OBJ writer and reader.
+marching tetrahedra, the OBJ writer and reader.
 
 The library is built with the host C++ compiler at first use
 (``ops/cuda_build.py``); a missing compiler or a failed build raises,
@@ -38,9 +38,42 @@ def library() -> ctypes.CDLL:
         lib.surs_read_obj.restype = ctypes.c_int
         lib.surs_read_obj.argtypes = [ctypes.c_char_p, _F32P, _I64P, _I64P,
                                       _I64P]
+        lib.surs_marching_tetrahedra.restype = ctypes.c_int
+        lib.surs_marching_tetrahedra.argtypes = [
+            _F32P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_float, ctypes.POINTER(_F32P), _I64P,
+            ctypes.POINTER(_I64P), _I64P]
         lib.surs_free.argtypes = [ctypes.c_void_p]
         _LIB = lib
     return _LIB
+
+
+def marching_tetrahedra(volume, level: float
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """The ``volume == level`` isosurface of an [X, Y, Z] field on the
+    host (inside where the value > level): (verts [V, 3] float32 grid
+    coordinates, faces [F, 3] int64), the vertices in first-appearance
+    order, the faces cell by cell. The same mesh as ``recon/tetra.py``
+    up to the order of its vertices and faces."""
+    vol = np.ascontiguousarray(volume, dtype=np.float32)
+    X, Y, Z = vol.shape
+    lib = library()
+    vp, fp = _F32P(), _I64P()
+    nv, nf = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.surs_marching_tetrahedra(
+        vol.ctypes.data_as(_F32P), X, Y, Z, ctypes.c_float(level),
+        ctypes.byref(vp), ctypes.byref(nv), ctypes.byref(fp),
+        ctypes.byref(nf))
+    if rc != 0:
+        raise MemoryError("marching tetrahedra: the host library could not "
+                          "allocate the mesh")
+    try:
+        verts = np.ctypeslib.as_array(vp, shape=(nv.value, 3)).copy()
+        faces = np.ctypeslib.as_array(fp, shape=(nf.value, 3)).copy()
+    finally:
+        lib.surs_free(vp)
+        lib.surs_free(fp)
+    return verts, faces
 
 
 def write_obj(path: str, verts, faces) -> None:

@@ -1,8 +1,9 @@
 """End-to-end reconstruction (counterpart of
 ``surs_tpu/recon/pipeline.py``): encode the image once, evaluate the
 (HR, LR) occupancy fields (coarse-to-fine, or densely), extract both
-meshes with marching cubes on the fields' device and write
-``*_HR.obj`` / ``*_LR.obj`` through the host library.
+meshes (marching cubes or tetrahedra on the fields' device, or marching
+tetrahedra in the host library) and write ``*_HR.obj`` / ``*_LR.obj``
+through the host library.
 
     rec = build_reconstructor(cfg, model, device, cfg.serve_octree_mode)
     rec.gen_mesh(cfg, data, "out/subject.obj")
@@ -27,10 +28,16 @@ from .evaluator import (dense_cols_separable, eval_grid_dense,
                         eval_grid_dense_cols, eval_grid_octree)
 from .evaluator_runs import eval_grid_octree_runs, runs_supported
 from .grid import grid_matrix, require_diagonal
-from .marching import marching_cubes
+from .marching import CapacityError, extract_isosurface, marching_cubes
 from .mesh_io import save_obj_mesh
+from .tetra import marching_tetrahedra
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DEVICE_EXTRACTORS = {"cubes": marching_cubes, "tets": marching_tetrahedra}
+# the keys of mc_caps the device extractors take; others are dropped so
+# that one mc_caps can serve every backend (surs_tpu/recon/pipeline.py:350)
+_DEVICE_CAPS = ("max_cells", "max_tris", "max_verts", "max_pts",
+                "cell_chunk")
 
 
 def eval_calibration(batch: int = 1) -> np.ndarray:
@@ -148,35 +155,82 @@ class Reconstructor:
                     init_resolution: int = 64,
                     transform: Optional[np.ndarray] = None,
                     level: float = 0.5, silhouette=None,
+                    mc_backend: str = "host", mc_caps: Optional[Dict] = None,
                     stats: Optional[Dict] = None):
         """Evaluation and extraction: (verts_hr, faces_hr, verts_lr,
-        faces_lr) numpy arrays, world coordinates."""
+        faces_lr) numpy arrays, world coordinates. ``mc_backend`` and
+        ``mc_caps`` choose the extractor as in :meth:`extract_pair`; the
+        default is the JAX package's, the host library's marching
+        tetrahedra."""
         sdf_hr, sdf_lr, mat = self.evaluate(
             feats_lr, feat_hr, calib, resolution, b_min, b_max,
             use_octree=use_octree, num_samples=num_samples,
             threshold=threshold, init_resolution=init_resolution,
             silhouette=silhouette, stats=stats, transform=transform)
         out = []
-        for verts, faces in self.extract_pair(sdf_hr, sdf_lr, mat, level):
+        for verts, faces in self.extract_pair(sdf_hr, sdf_lr, mat, level,
+                                              mc_backend, mc_caps, stats):
             out += [verts, faces]
         return tuple(out)
 
     @staticmethod
     @torch.inference_mode()
-    def extract_pair(sdf_hr, sdf_lr, mat, level: float = 0.5):
+    def extract_pair(sdf_hr, sdf_lr, mat, level: float = 0.5,
+                     mc_backend: str = "host", mc_caps: Optional[Dict] = None,
+                     stats: Optional[Dict] = None):
         """Yield (verts [V, 3] float32 world, faces [F, 3] int64) numpy
-        arrays for the HR then the LR field. Both meshes are extracted,
-        and both copies to the host started, before the HR mesh is
-        yielded: on the card the LR mesh's copy into pinned memory runs
-        while the caller writes the HR file (the staging of
-        ``surs_tpu/recon/pipeline.py:365-374``)."""
+        arrays for the HR then the LR field
+        (``surs_tpu/recon/pipeline.py:295-380``). ``mc_backend``:
+
+        * 'device': ``mc_caps["algorithm"]`` ('cubes', or 'tets' by
+          default) on the fields' device. Both meshes are extracted, and
+          both copies to the host started, before the HR mesh is yielded:
+          on the card the LR mesh's copy into pinned memory runs while the
+          caller writes the HR file;
+        * 'host': each field copied to the host and meshed by the host
+          library's marching tetrahedra (the algorithm key is not read);
+        * 'auto': 'device', and 'host' only when a capacity in ``mc_caps``
+          (``max_cells``, ``max_tris``, ``max_verts``, ``max_pts``; none by
+          default) is exceeded.
+
+        ``stats["mc"]`` names what ran ('device/tets', 'device/cubes' or
+        'host/tets'); an 'auto' fallback also sets
+        ``stats["mc_fallback"]`` to the capacity error."""
         mat = np.asarray(mat)
-        staged = [_to_host(*marching_cubes(sdf, level))
-                  for sdf in (sdf_hr, sdf_lr)]
-        for fetch in staged:
-            verts, faces = fetch()
+        caps = mc_caps or {}
+        stats = {} if stats is None else stats
+
+        def to_world(verts, faces):
             verts = verts @ mat[:3, :3].T + mat[:3, 3]
-            yield verts.astype(np.float32), faces
+            return verts.astype(np.float32), faces
+
+        if mc_backend == "sharded":
+            raise NotImplementedError(
+                "mc_backend='sharded' is not ported yet (ROADMAP.md A13 "
+                "multi-device)")
+        if mc_backend not in ("device", "host", "auto"):
+            raise ValueError(f"unknown mc_backend {mc_backend!r}")
+        if mc_backend in ("device", "auto"):
+            algorithm = caps.get("algorithm", "tets")
+            if algorithm not in _DEVICE_EXTRACTORS:
+                raise ValueError(f"unknown mc algorithm {algorithm!r}")
+            extract = _DEVICE_EXTRACTORS[algorithm]
+            kw = {k: v for k, v in caps.items() if k in _DEVICE_CAPS}
+            try:
+                staged = [_to_host(*extract(sdf, level, **kw))
+                          for sdf in (sdf_hr, sdf_lr)]
+            except CapacityError as err:
+                if mc_backend == "device":
+                    raise
+                stats["mc_fallback"] = str(err)
+            else:
+                stats["mc"] = f"device/{algorithm}"
+                for fetch in staged:
+                    yield to_world(*fetch())
+                return
+        stats["mc"] = "host/tets"
+        for sdf in (sdf_hr, sdf_lr):
+            yield to_world(*extract_isosurface(sdf, level, "native"))
 
     def gen_mesh_begin(self, cfg, data: dict, save_path: str,
                        stats: Optional[Dict] = None):
@@ -184,7 +238,10 @@ class Reconstructor:
         extracts both meshes and writes the OBJ pair, returning
         (path_hr, path_lr). ``stats`` gathers the evaluation's mode and
         queries, the faces of each mesh and the seconds of the OBJ
-        writes (``write_s``)."""
+        writes (``write_s``), the seconds spent extracting (``extract_s``)
+        and the extractor that ran (``mc``). The extractor is
+        ``cfg.mc_backend`` with ``cfg.mc_algorithm``
+        (``surs_tpu/recon/pipeline.py:419-428``)."""
         _, feats_lr, feat_hr = self.encode(data["img_LR"])
         if "calib" in data:
             calib = np.asarray(data["calib"], np.float32).reshape(-1, 4, 4)
@@ -204,14 +261,19 @@ class Reconstructor:
         paths = (stem + "_HR.obj", stem + "_LR.obj")
 
         def finish() -> Tuple[str, str]:
-            for path, (verts, faces) in zip(
-                    paths, self.extract_pair(sdf_hr, sdf_lr, mat)):
+            st = {} if stats is None else stats
+            meshes = self.extract_pair(
+                sdf_hr, sdf_lr, mat, mc_backend=cfg.mc_backend,
+                mc_caps={"algorithm": cfg.mc_algorithm}, stats=st)
+            for path in paths:
                 t0 = time.perf_counter()
+                verts, faces = next(meshes)
+                t1 = time.perf_counter()
                 save_obj_mesh(path, verts, faces)
-                if stats is not None:
-                    stats.setdefault("faces", []).append(len(faces))
-                    stats["write_s"] = (stats.get("write_s", 0.0)
-                                        + time.perf_counter() - t0)
+                st.setdefault("faces", []).append(len(faces))
+                st["extract_s"] = st.get("extract_s", 0.0) + t1 - t0
+                st["write_s"] = (st.get("write_s", 0.0)
+                                 + time.perf_counter() - t1)
             return paths
 
         return finish
@@ -263,18 +325,22 @@ def reconstruction(model, feats_lr, feat_hr, calib, resolution: int, b_min,
                    threshold: float = 0.05, init_resolution: int = 64,
                    transform: Optional[np.ndarray] = None,
                    weights: Optional[FusedWeights] = None,
-                   level: float = 0.5):
+                   level: float = 0.5, mc_backend: str = "host",
+                   mc_caps: Optional[Dict] = None):
     """Evaluate both occupancy fields and extract both meshes
     (``surs_tpu/recon/pipeline.py:476``) on the features' device;
-    ``weights`` default to the model's MLPs packed in float32. Returns
-    (verts_hr, faces_hr, verts_lr, faces_lr)."""
+    ``weights`` default to the model's MLPs packed in float32, the
+    extractor to the host library's marching tetrahedra
+    (``Reconstructor.extract_pair``). Returns (verts_hr, faces_hr,
+    verts_lr, faces_lr)."""
     if weights is None:
         weights = prepare_fused_weights(model.mlp_lr, model.mlp_hr,
                                         dtype=torch.float32)
     rec = Reconstructor(model, weights, feat_hr.device)
     return rec.reconstruct(feats_lr, feat_hr, calib, resolution, b_min,
                            b_max, use_octree, num_samples, threshold,
-                           init_resolution, transform, level)
+                           init_resolution, transform, level,
+                           mc_backend=mc_backend, mc_caps=mc_caps)
 
 
 def gen_mesh(cfg, model, data: dict, save_path: str,
@@ -286,3 +352,26 @@ def gen_mesh(cfg, model, data: dict, save_path: str,
     device = next(model.parameters()).device
     rec = build_reconstructor(cfg, model, device, cfg.octree_mode)
     return rec.gen_mesh(cfg, data, save_path, stats)
+
+
+def make_point_eval(model, feats_lr, feat_hr, calib,
+                    weights: Optional[FusedWeights] = None):
+    """A [3, C] -> (hr [C], lr [C]) evaluator of ``model``'s occupancy
+    over the given features and calibration, through the port's query
+    (kernel K1; ``surs_tpu/recon/pipeline.py:511-524``). ``weights``
+    default to the model's MLPs packed in float32."""
+    if weights is None:
+        weights = prepare_fused_weights(model.mlp_lr, model.mlp_hr,
+                                        dtype=torch.float32)
+    calib_t = torch.as_tensor(np.asarray(calib, np.float32),
+                              device=feat_hr.device)
+
+    @torch.inference_mode()
+    def eval_fn(points):
+        pts = torch.as_tensor(points, dtype=torch.float32,
+                              device=feat_hr.device)
+        hr, lr = fused_query(weights, feats_lr[-1], feat_hr, pts[None],
+                             calib_t, model.load_size, model.z_size)
+        return hr[0], lr[0]
+
+    return eval_fn

@@ -240,7 +240,7 @@ def test_reconstruct_matches_jax(services, transform, level):
     got = tsvc.rec.reconstruct(
         t_lr, t_hr, calib, 32, COMMON["b_min"], COMMON["b_max"],
         num_samples=4096, init_resolution=8, transform=transform,
-        level=level)
+        level=level, mc_backend="device", mc_caps={"algorithm": "cubes"})
     for i in (0, 2):
         vg, fg, vw, fw = got[i], got[i + 1], want[i], want[i + 1]
         assert fg.shape[0] > 0 and fg.shape == np.asarray(fw).shape
@@ -251,7 +251,9 @@ def test_reconstruct_matches_jax(services, transform, level):
     func = reconstruction(tsvc.model, t_lr, t_hr, calib, 32,
                           COMMON["b_min"], COMMON["b_max"],
                           num_samples=4096, init_resolution=8,
-                          transform=transform, level=level)
+                          transform=transform, level=level,
+                          mc_backend="device",
+                          mc_caps={"algorithm": "cubes"})
     for a, b in zip(func, got):
         np.testing.assert_array_equal(a, b)
 
@@ -284,7 +286,9 @@ def test_staged_extract_pair_yields_the_plain_meshes(services):
     sdf_hr, sdf_lr = tsvc.fields(*subject())
     mat = np.diag([1 / 32, 1 / 32, 1 / 32, 1.0])
     mat[:3, 3] = -0.5
-    got = list(Reconstructor.extract_pair(sdf_hr, sdf_lr, mat))
+    got = list(Reconstructor.extract_pair(sdf_hr, sdf_lr, mat,
+                                          mc_backend="device",
+                                          mc_caps={"algorithm": "cubes"}))
     for sdf, (verts, faces) in zip((sdf_hr, sdf_lr), got):
         v, f = marching_cubes(sdf, 0.5)
         want_v = (v.numpy() @ mat[:3, :3].T + mat[:3, 3]).astype(np.float32)

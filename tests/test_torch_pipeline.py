@@ -117,7 +117,6 @@ def test_auto_table():
 
 @pytest.mark.parametrize("field,value", [
     ("mc_backend", "sharded"), ("remat", True),
-    ("mc_algorithm", "tets"), ("mc_backend", "host"),
     ("remat_encoder", True), ("with_color", True)])
 def test_unported_values_raise(field, value):
     cfg = dataclasses.replace(SuRSConfig(), **{field: value})
@@ -127,7 +126,8 @@ def test_unported_values_raise(field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("octree_mode", "runs"), ("serve_octree_mode", "runs"),
-    ("use_octree", False)])
+    ("use_octree", False), ("mc_algorithm", "tets"),
+    ("mc_backend", "host")])
 def test_dense_and_runs_values_resolve(field, value):
     cfg = resolve_config(dataclasses.replace(SuRSConfig(), **{field: value}),
                          "cpu")
