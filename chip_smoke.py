@@ -126,6 +126,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
               gradients against the plain step's, tensor by tensor; and
               the trainer's last checkpoint restored into a fresh state
               on the card equals the state it saved.
+ 13b. configs: the rest of the model's configuration space at full
+              width, on the `train` phase's batch and points: (a) 48
+              steps of a batch-norm model with --fused_train, which
+              takes the plain step (K2's launch count zeroed just before
+              and read just after: 0), beside 6 plain group-norm steps;
+              the running statistics moved; its netG_latest loaded
+              strictly into a fresh service through load_netG (the
+              statistics restored) and the first training item's view
+              served at 512^3, mono, K1's launch count zeroed just before
+              and read just after (> 0), both meshes non-empty, request
+              seconds, evaluate_s; the served field against the trained
+              model's own through the same path (CONFIG_FIELD_TOL). (b)
+              num_views=2 at batch 1 with --fused_train (the plain step,
+              K2 0): predictions [2, N, 1],
+              finite losses, seconds per step, peak memory. (c) one
+              float32 step at batch 4 each way (no remat, remat, remat +
+              remat_encoder) for group and batch norm from the same
+              weights: loss, gradients (GRAD_TOL, GRAD_FLOOR) and running
+              statistics against no remat's; peak memory, step seconds.
  14. containment (run after k5): the winding-number kernel
               (csrc/winding_number.cu) against its plain version on the
               card at one training item's draw (25,500 points, sigma 5.0
@@ -194,6 +213,7 @@ no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -1659,7 +1679,8 @@ def train_items(cfg, seed: int = SEED):
     an image with an ellipse silhouette (LR at loadSize/2, HR at
     loadSize), the eval calibration, sample points in the +-0.5 box and
     occupancy labels of an ellipsoid (labels_disp: the HR occupancy at
-    the LR samples, as the dataset defines it)."""
+    the LR samples, as the dataset defines it), and the silhouette
+    (mask_LR)."""
     rng = np.random.default_rng(seed)
     S, N = cfg.loadSize // 2, cfg.num_sample_inout
     yy, xx = np.mgrid[:S, :S]
@@ -1678,6 +1699,7 @@ def train_items(cfg, seed: int = SEED):
         pts_lr = rng.uniform(-0.5, 0.5, (3, N)).astype(np.float32)
         items.append({
             "name": f"synthetic{i}", "img_LR": img_lr, "img_HR": img_hr,
+            "mask_LR": sil.astype(np.float32),
             "calib": np.diag([2.0, -2.0, 2.0, 1.0]).astype(np.float32),
             "samples_HR": pts_hr, "samples_LR": pts_lr,
             "labels_HR": inside(pts_hr)[None],
@@ -1806,6 +1828,266 @@ def phase_train_check(cfg, items, trained, device: str = "cuda"):
             and abs(e_fused["total"] - e_plain["total"])
             <= 1e-5 * abs(e_plain["total"])):
         raise AssertionError(f"train_check failed: {rec}")
+
+
+# the configs phase: batch-norm steps (the running statistics then hold
+# 1 - 0.9^48 = 99.4 % of the batches'; after 16 the init's unit variance
+# still holds 19 %, enough to take the eval trunk off scale and leave
+# the served meshes empty), the group-norm plain steps beside them,
+# multi-view steps, and the remat comparison's batch
+CONFIG_STEPS = 48
+GN_STEPS = 6
+MV_STEPS = 4
+REMAT_BATCH = 4
+# the batch-norm model served from its netG file against the same
+# trained model in memory through the same path: the same weights,
+# statistics and kernels (bf16 trunk and K1), so equal up to a cuDNN
+# algorithm's summation order, which can flip a bf16 rounding as in K1
+CONFIG_FIELD_TOL = K1_TOL["bfloat16"]
+# remat against no remat, float32, one step from the same weights: the
+# same operations recomputed, so the loss to float32 rounding (1e-6
+# relative), the gradients per tensor at GRAD_TOL (cuDNN's backward may
+# sum in another order from run to run), the running statistics (from
+# the first forward alone) to 1e-6 of their norm
+REMAT_LOSS_TOL = 1e-6
+REMAT_STATS_TOL = 1e-6
+# a gradient that is zero by construction (the bias of a conv in front of
+# a batch norm, which removes any per-channel constant) holds float32
+# noise: each tensor's gradient error is taken relative to its norm plus
+# this share of the whole gradient's norm
+GRAD_FLOOR = 1e-6
+
+
+def configs_fields(rec, cfg, img, mask):
+    """(sdf_hr, sdf_lr, evaluate seconds) of one subject through ``rec``
+    (mono octree, silhouette pruning, as the service)."""
+    import torch
+    from surs_tpu_torch.recon.pipeline import eval_calibration
+    from surs_tpu_torch.serve import normalize_image
+
+    arr, m = normalize_image(img, mask)
+    _, feats_lr, feat_hr = rec.encode(arr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sdf_hr, sdf_lr, _ = rec.evaluate(
+        feats_lr, feat_hr, eval_calibration(1), cfg.resolution, cfg.b_min,
+        cfg.b_max, use_octree=cfg.use_octree, num_samples=cfg.num_samples,
+        threshold=cfg.threshold, init_resolution=cfg.octree_init_resolution,
+        silhouette=m)
+    torch.cuda.synchronize()
+    return sdf_hr, sdf_lr, time.perf_counter() - t0
+
+
+def configs_train(cfg, items, steps: int):
+    """train() on ``items`` repeated, ``steps`` steps, on the card ->
+    (its record: seconds per step after the first, losses, the
+    predictions' shape, peak memory, K2's launches; the trained state)."""
+    import torch
+    from surs_tpu_torch.data.loader import DataLoader
+    from surs_tpu_torch.ops.fused_mlp import fused_dual_mlp_train
+    from surs_tpu_torch.train.loop import train
+
+    loader = DataLoader(RepeatedItems(items, steps),
+                        batch_size=cfg.batch_size, shuffle=False)
+    marks, held = [], {}
+
+    def on_step(state, metrics):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), float(metrics["total"])))
+        held.update(state=state, shape=list(metrics["pred_hr"].shape))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_dual_mlp_train.launches = 0        # main path starts here
+    t0 = time.perf_counter()
+    train(cfg, loader, max_iters=steps, device="cuda", on_step=on_step)
+    torch.cuda.synchronize()
+    k2 = fused_dual_mlp_train.launches       # main path ends here
+    times = np.diff([t0] + [t for t, _ in marks])
+    losses = [loss for _, loss in marks]
+    rec = {"batch": cfg.batch_size, "views": cfg.num_views,
+           "points": cfg.num_sample_inout, "norm": cfg.norm,
+           "fused_train": cfg.fused_train, "steps": len(marks),
+           "k2_launches": k2, "pred_shape": held["shape"],
+           "warmup_s": float(times[0]),
+           "seconds_per_step": float(np.median(times[1:])),
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "first_loss": losses[0], "last_loss": losses[-1]}
+    rec["ok"] = bool(len(marks) == steps and k2 == 0
+                     and np.isfinite(losses).all())
+    return rec, held["state"]
+
+
+def configs_batch_norm(root: str):
+    """(a) A batch-norm model trained at full width with --fused_train
+    (the plain step: K2 never launched; the group-norm plain step beside
+    it), saved, loaded strictly into a fresh service through load_netG
+    and served at 512^3 through K1 on the first training item's view
+    (the input its statistics were gathered on); the served field
+    against the trained model's own."""
+    import torch
+    from surs_tpu_torch.ops.fused_mlp import fused_dual_mlp
+    from surs_tpu_torch.recon.pipeline import build_reconstructor
+    from surs_tpu_torch.serve import SuRSService
+    from surs_tpu_torch.train.checkpoint import CheckpointManager
+
+    base = train_config(root)
+    items = train_items(base)
+    gn, _ = configs_train(dataclasses.replace(
+        base, fused_train=False, name="configs_gn"), items, GN_STEPS)
+    cfg = dataclasses.replace(base, norm="batch", name="configs_bn")
+    bn, state = configs_train(cfg, items, CONFIG_STEPS)
+    model = state.model
+    stats = {k: v for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    moved = sum(not torch.equal(v, torch.zeros_like(v) if
+                                k.endswith("mean") else torch.ones_like(v))
+                for k, v in stats.items())
+
+    path = CheckpointManager(cfg.checkpoints_path, cfg.name).path()
+    service = SuRSService(full_width_config(norm="batch",
+                                            load_netG_checkpoint_path=path))
+    service.warmup((256, 256))
+    # the first item's view, as the service takes an image in [0, 1]
+    img, mask = (items[0]["img_LR"] + 1.0) / 2.0, items[0]["mask_LR"]
+    torch.cuda.synchronize()
+    fused_dual_mlp.launches = 0              # main path starts here
+    t1 = time.perf_counter()
+    req = {}
+    service.reconstruct(img, mask, "configs_bn", root, stats=req)
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t1
+    k1 = fused_dual_mlp.launches             # main path ends here
+    served_hr, served_lr, evaluate_s = configs_fields(
+        service.rec, service.cfg, img, mask)
+    mem_rec = build_reconstructor(service.cfg, model, "cuda",
+                                  service.cfg.serve_octree_mode)
+    mem_hr, mem_lr, _ = configs_fields(mem_rec, service.cfg, img, mask)
+    field_err = max((a - b).abs().max().item() for a, b in
+                    ((served_hr, mem_hr), (served_lr, mem_lr)))
+    restored = all(torch.equal(v, stats[k].to(v.device))
+                   for k, v in service.model.state_dict().items()
+                   if k in stats)
+    bn.update(stats=len(stats), stats_moved=moved, stats_restored=restored,
+              k1_launches=k1, request_s=request_s, queries=req["queries"],
+              extract_s=req["extract_s"], write_s=req["write_s"],
+              faces=req["faces"], evaluate_s=evaluate_s,
+              field_lr_range=[served_lr.min().item(),
+                              served_lr.max().item()],
+              served_vs_trained_field=field_err, field_tol=CONFIG_FIELD_TOL)
+    ok = (gn["ok"] and bn["ok"] and moved == len(stats) > 0 and restored
+          and k1 > 0 and min(req["faces"]) > 0
+          and field_err <= CONFIG_FIELD_TOL)
+    return {"group_norm_plain": gn, "batch_norm": bn}, ok
+
+
+def configs_multi_view(root: str):
+    """(b) num_views=2 at batch 1 (the reference's only multi-view
+    shape), full width, --fused_train: the plain step."""
+    cfg = dataclasses.replace(train_config(root), num_views=2, batch_size=1,
+                              name="configs_mv")
+    a, b = train_items(dataclasses.replace(cfg, batch_size=2))
+    item = {**a, **{k: np.stack([a[k], b[k]])
+                    for k in ("img_LR", "img_HR", "calib")}}
+    rec, _ = configs_train(cfg, [item], MV_STEPS)
+    return rec, rec["ok"] and rec["pred_shape"] == [2, TRAIN_POINTS, 1]
+
+
+def configs_remat(root: str):
+    """(c) One full-width float32 step at batch REMAT_BATCH each way (no
+    remat, remat, remat + remat_encoder), with group and batch norm,
+    from the same weights and statistics: losses, gradients and running
+    statistics against no remat's; peak memory and step time."""
+    import torch
+    from surs_tpu_torch.data.loader import collate
+    from surs_tpu_torch.models.surs_net import surs_net_from_config
+    from surs_tpu_torch.config import resolve_config
+    from surs_tpu_torch.train.loop import batch_to_device
+    from surs_tpu_torch.train.step import denormalize_images, train_loss
+
+    base = dataclasses.replace(train_config(root), dtype="float32",
+                               batch_size=REMAT_BATCH)
+    batch = denormalize_images(batch_to_device(
+        collate(train_items(base)), "cuda", quantize_images=True))
+    modes = (("none", False, False), ("remat", True, False),
+             ("remat+encoder", True, True))
+    out, ok = {}, True
+    for norm in ("group", "batch"):
+        cfg = resolve_config(dataclasses.replace(base, norm=norm), "cuda")
+        model = surs_net_from_config(cfg, "cuda").train()
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        want = None
+        # the first no-remat step (group norm) also warms cuDNN up for
+        # these float32 shapes; the batch-norm model has the same convs
+        runs = ((modes[0],) if norm == "group" else ()) + modes
+        for name, remat, remat_encoder in runs:
+            model.load_state_dict(init)
+            model.remat, model.remat_encoder = remat, remat_encoder
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            total = train_loss(model, batch)[0]
+            total.backward()
+            torch.cuda.synchronize()
+            r = {"step_s": time.perf_counter() - t0,
+                 "max_memory_allocated_gb":
+                     torch.cuda.max_memory_allocated() / 1e9,
+                 "loss": total.item()}
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+            stats = {k: v.clone() for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            if want is None:             # no remat: the reference
+                want = (r, grads, stats)
+                if norm == "batch":
+                    out[f"{norm}/{name}"] = r
+                continue
+            w_r, w_g, w_s = want
+            r["loss_rel_err"] = abs(r["loss"] - w_r["loss"]) / abs(
+                w_r["loss"])
+            floor = GRAD_FLOOR * float(torch.stack(
+                [g.norm() for g in w_g.values()]).norm())
+            r["grad_rel_err"] = max(
+                float((grads[n] - g).norm()) / (float(g.norm()) + floor)
+                for n, g in w_g.items())
+            r["stats_rel_err"] = max(
+                (float((stats[k] - v).norm() / v.norm())
+                 for k, v in w_s.items()), default=0.0)
+            out[f"{norm}/{name}"] = r
+            ok = ok and (r["loss_rel_err"] <= REMAT_LOSS_TOL
+                         and r["grad_rel_err"] <= GRAD_TOL
+                         and r["stats_rel_err"] <= REMAT_STATS_TOL)
+            del grads
+        del model, want
+        torch.cuda.empty_cache()
+    return {"batch": REMAT_BATCH, "points": TRAIN_POINTS,
+            "dtype": "float32", "runs": out,
+            "tol": {"loss": REMAT_LOSS_TOL, "grad": GRAD_TOL,
+                    "grad_floor": GRAD_FLOOR, "stats": REMAT_STATS_TOL}}, ok
+
+
+def phase_configs(root: str):
+    """The rest of the model's configuration space at full width: (a)
+    batch norm trained and served, (b) multi-view training, (c) remat."""
+    import torch
+
+    t0 = time.perf_counter()
+    bn, ok_bn = configs_batch_norm(root)
+    clear_objs(root)
+    torch.cuda.empty_cache()
+    mv, ok_mv = configs_multi_view(root)
+    torch.cuda.empty_cache()
+    rm, ok_rm = configs_remat(root)
+    rec = {"phase": "configs", **bn, "multi_view": mv, "remat": rm,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not (ok_bn and ok_mv and ok_rm):
+        raise AssertionError(
+            f"configs failed: batch_norm {ok_bn}, multi_view {ok_mv}, "
+            f"remat {ok_rm}")
 
 
 def phase_train_profile(cfg, items, trained, steps: int = 3):
@@ -2516,10 +2798,19 @@ def phase_accuracy(out_dir: str, device: str = "cuda"):
 
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "containment", "serve",
           "check", "stages", "native_io", "tets", "cli", "eval", "dense",
-          "runs", "train", "train_check", "train_data", "precompute",
-          "accuracy")
+          "runs", "train", "train_check", "configs", "train_data",
+          "precompute", "accuracy")
 # run only when named in --phases
 EXTRA_PHASES = ("train_profile", "serve_profile")
+
+
+def print_card() -> None:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
 
 
 def main() -> int:
@@ -2576,6 +2867,9 @@ def main() -> int:
                 phase_train_profile(cfg, items, trained)
             del trained
             torch.cuda.empty_cache()
+        if "configs" in phases:
+            phase_configs(out_dir)
+            torch.cuda.empty_cache()
         if "train_data" in phases or "precompute" in phases:
             dataroot, argv, fed = phase_train_data(out_dir)
             if "precompute" in phases:
@@ -2583,6 +2877,7 @@ def main() -> int:
         if "accuracy" in phases:
             phase_accuracy(out_dir)
     if set(phases) != set(PHASES):
+        print_card()
         emit({"partial": phases})
         return 0
     main_rec = k1[("bfloat16", N_MAIN)]
@@ -2677,11 +2972,7 @@ def main() -> int:
         "per": "one training item: 25,500 points against the HR (327,680 "
                "faces) and the LR (20,480) mesh",
     }]})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print_card()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,6 +9,9 @@ layout:
   * Conv1d [out, in, 1]      -> Dense kernel [in, out]
   * GroupNorm weight / bias  -> scale / bias of the ``gn`` (group) or
     ``bn`` (batch) norm submodule, whichever the target model has
+  * BatchNorm running_mean / running_var -> the ``bn`` submodule's
+    ``mean`` / ``var`` (Flax's ``batch_stats``); num_batches_tracked has
+    no counterpart and is skipped
 
 and the port's submodules carry the Flax names, so the Flax tree goes
 through the weight bridge (``flax_import.flax_to_state_dict``) to the
@@ -20,9 +23,9 @@ bn4, and a bn4 without its downsample conv.
 
 ``load_netG`` loads ``cfg.load_netG_checkpoint_path`` into a model: a
 port ``netG_*`` file strictly, a reference state dict as the JAX
-package does (non-strict, a count printed). Batch-norm running
-statistics (ROADMAP.md A16), the JAX package's orbax directories (A17)
-and netC, the color net (A11), are not read.
+package does (non-strict, a count printed), the running statistics of
+a batch-norm model with it. The JAX package's orbax directories
+(ROADMAP.md A17) and netC, the color net (A11), are not read.
 """
 
 from __future__ import annotations
@@ -125,7 +128,8 @@ def _flax_path(torch_key: str) -> Optional[Tuple[str, ...]]:
 
 def _convert_leaf(torch_key: str, arr: np.ndarray):
     """(Flax leaf name, value in Flax's layout) of a state-dict entry;
-    (None, None) for entries without a parameter (num_batches_tracked)."""
+    (None, None) for entries without a counterpart
+    (num_batches_tracked)."""
     leaf = torch_key.split(".")[-1]
     if leaf == "weight":
         if arr.ndim == 4:       # Conv2d
@@ -135,8 +139,10 @@ def _convert_leaf(torch_key: str, arr: np.ndarray):
         return "scale", arr     # norm weight
     if leaf == "bias":
         return "bias", arr
-    if leaf in ("running_mean", "running_var"):
-        return leaf, arr
+    if leaf == "running_mean":
+        return "mean", arr
+    if leaf == "running_var":
+        return "var", arr
     return None, None
 
 
@@ -152,11 +158,14 @@ def _norm_dir(keys, path: Tuple[str, ...]) -> Optional[str]:
 
 def reference_to_flax(state_dict: Mapping, model: nn.Module
                       ) -> Tuple[Dict, int]:
-    """A reference state dict -> (the nested Flax params tree, numpy
-    leaves in Flax's layout, of the entries that land in ``model``'s
-    parameters; their count). Entries without a place in ``model`` are
-    skipped, as the JAX package's non-strict import skips them; a shape
-    that disagrees raises, and so do batch-norm running statistics."""
+    """A reference state dict -> (the nested Flax tree, numpy leaves in
+    Flax's layout, of the entries that land in ``model``'s parameters
+    and batch-norm statistics; their count). The statistics sit beside
+    the parameters, as ``mean`` / ``var`` leaves of each ``bn`` module
+    (Flax keeps them in a ``batch_stats`` tree of the same paths).
+    Entries without a place in ``model`` are skipped, as the JAX
+    package's non-strict import skips them; a shape that disagrees
+    raises."""
     target = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     tree: Dict = {}
     n = 0
@@ -177,10 +186,6 @@ def reference_to_flax(state_dict: Mapping, model: nn.Module
             if norm is None:
                 continue
             path = path[:i] + (norm,) + path[i + 1:]
-        if leaf in ("running_mean", "running_var"):
-            raise NotImplementedError(
-                f"{key}: batch-norm running statistics are not read yet "
-                "(ROADMAP.md A16 batch-norm trunks)")
         port_key, value = next(iter(flax_to_state_dict(
             {leaf: arr}).items()))
         port_key = ".".join(path + (port_key,))
@@ -200,9 +205,20 @@ def reference_to_flax(state_dict: Mapping, model: nn.Module
 def import_torch_state_dict(state_dict: Mapping, model: nn.Module) -> int:
     """Load a reference state dict into ``model`` (non-strict, as the
     JAX package's ``load_params``); returns the count of tensors
-    imported."""
+    imported. A batch-norm model's running statistics are all required:
+    one missing from the file raises rather than leave the model
+    normalising with untrained statistics."""
     tree, n = reference_to_flax(state_dict, model)
-    model.load_state_dict(flax_to_state_dict(tree), strict=False)
+    state = flax_to_state_dict(tree)
+    missing = [k for k in model.state_dict()
+               if k.endswith((".running_mean", ".running_var"))
+               and k not in state]
+    if missing:
+        raise ValueError(
+            f"{len(missing)} batch-norm running statistics of the model "
+            f"are not in the state dict (first: {missing[0]}); the model "
+            "would normalise with untrained statistics")
+    model.load_state_dict(state, strict=False)
     return n
 
 

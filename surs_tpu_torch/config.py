@@ -206,9 +206,6 @@ AUTO = {
 _UNPORTED = {
     ("mc_backend", "sharded"): "A13 multi-device",
     ("with_color", True): "A11 color branch",
-    ("norm", "batch"): "A16 batch-norm trunks",
-    ("remat", True): "A19 training remainder (remat)",
-    ("remat_encoder", True): "A19 training remainder (remat)",
 }
 _PORTED = {
     "dtype": ("float32", "bfloat16"),

@@ -15,19 +15,29 @@ runs at ``points_hr`` against the HR labels, the fine MLP at
 ``points_lr`` against the displacement labels, conditioned on the
 coarse prediction list. Predictions are masked to the image after the
 sigmoid.
+
+``num_views`` V > 1 trains on V views of one item (batch 1, its rows
+[V, ...]): the MLPs average over the views halfway, and each view's
+in-image mask multiplies the averaged prediction, [V, N, 1], as in the
+JAX package, which has no multi-view batch > 1 and no multi-view
+serving (ROADMAP.md C7). ``remat`` checkpoints both point MLPs and
+``remat_encoder`` the conv trunk (SuRSSR and both HGFilters) under
+autograd: the same values and gradients, fewer saved activations.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.geometry import in_image_mask, normalize_depth, orthogonal
 from ..ops.grid_sample import grid_sample_points
 from .hourglass import HGFilter
-from .layers import init_weights
+from .layers import frozen_stats, init_weights
 from .sr_net import SuRSSR
 from .surface_classifier import SurfaceClassifier
 
@@ -65,12 +75,13 @@ class SuRSNet(nn.Module):
                  n_block=(2, 2, 2), residual: bool = False, scale: int = 2,
                  load_size: int = 512, z_size: float = 200.0,
                  w_mlp1: float = 1.0, w_mlp2: float = 1.0,
-                 w_sr: float = 1.0, w_disp: float = 1.0):
+                 w_sr: float = 1.0, w_disp: float = 1.0,
+                 remat: bool = False, remat_encoder: bool = False):
         super().__init__()
-        if num_views != 1:
-            raise NotImplementedError("num_views > 1 is not ported")
         self.norm = norm
         self.num_views = num_views
+        self.remat = remat
+        self.remat_encoder = remat_encoder
         self.load_size = load_size
         self.z_size = z_size
         self.loss_weights = (w_mlp1, w_mlp2, w_sr, w_disp)
@@ -80,9 +91,9 @@ class SuRSNet(nn.Module):
         self.image_filter_hr = HGFilter(num_stack_hr, hg_depth, 64, 64,
                                         norm, "high_res")
         self.mlp_lr = SurfaceClassifier(mlp_dim_lr, mlp_res_layers_lr,
-                                        no_residual)
+                                        no_residual, num_views)
         self.mlp_hr = SurfaceClassifier(mlp_dim_hr, mlp_res_layers_hr,
-                                        no_residual)
+                                        no_residual, num_views)
 
     def set_trunk_dtype(self, dtype: torch.dtype) -> "SuRSNet":
         """Compute the conv trunk (SuRSSR and both HGFilters) in
@@ -92,14 +103,29 @@ class SuRSNet(nn.Module):
             m.compute_dtype = dtype
         return self
 
+    @staticmethod
+    def _run(module: nn.Module, remat: bool, *args):
+        """``module(*args)``; with ``remat`` under autograd, checkpointed:
+        the backward pass recomputes its forward, in which its batch
+        norms keep their running statistics (they moved once, in the
+        first forward)."""
+        if not (remat and torch.is_grad_enabled()):
+            return module(*args)
+        return checkpoint(module, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_stats(module)))
+
     def encode(self, images_lr: torch.Tensor, train: bool = False):
         """images_lr [B, S, S, 3] -> (img_sr, feats_lr, feat_hr), NHWC;
-        eval keeps only the last lr stack, training keeps all."""
-        img_sr, f_lr, f_hr = self.super_resolution(images_lr)
-        feats_lr = self.image_filter_lr(f_lr)
+        eval keeps only the last lr stack, training keeps all. ``train``
+        also sets the batch norms' mode."""
+        remat = self.remat_encoder
+        img_sr, f_lr, f_hr = self._run(self.super_resolution, remat,
+                                       images_lr)
+        feats_lr = self._run(self.image_filter_lr, remat, f_lr, train)
         if not train:
             feats_lr = [feats_lr[-1]]
-        feat_hr = self.image_filter_hr(f_hr)[0]
+        feat_hr = self._run(self.image_filter_hr, remat, f_hr, train)[0]
         return img_sr, feats_lr, feat_hr
 
     def project(self, points, calibs):
@@ -122,7 +148,7 @@ class SuRSNet(nn.Module):
                  ) -> List[torch.Tensor]:
         """Coarse occupancy per stack, [B, N, 1] each."""
         uv, z_feat, mask = self.project(points, calibs)
-        return [mask[..., None] * self.mlp_lr(pf)
+        return [mask[..., None] * self._run(self.mlp_lr, self.remat, pf)
                 for pf in self.stack_features(feats_lr, feat_hr, uv, z_feat)]
 
     def query_sr(self, feats_lr, feat_hr, points, calibs, preds_lr
@@ -130,7 +156,8 @@ class SuRSNet(nn.Module):
         """Fine occupancy per stack, conditioned on the coarse list."""
         uv, z_feat, mask = self.project(points, calibs)
         pfs = self.stack_features(feats_lr, feat_hr, uv, z_feat)
-        return [mask[..., None] * self.mlp_hr(torch.cat([pf, p], dim=-1))
+        return [mask[..., None] * self._run(self.mlp_hr, self.remat,
+                                            torch.cat([pf, p], dim=-1))
                 for pf, p in zip(pfs, preds_lr)]
 
     def query(self, feats_lr: List[torch.Tensor], feat_hr: torch.Tensor,
@@ -149,7 +176,14 @@ class SuRSNet(nn.Module):
         [B, 2S, 2S, 3], points_* [B, 3, N], calibs [B, 4, 4], labels_hr
         (occupancy) and labels_lr (displacement) [B, N, 1]. Returns
         (pred_hr [B, N, 1], total, pred_lr [B, N, 1], errors); without
-        labels total is 0 and errors empty."""
+        labels total is 0 and errors empty. With ``num_views`` V > 1 the
+        rows are the V views of one item (the predictions [V, N, 1])."""
+        if self.num_views > 1 and images_lr.shape[0] != self.num_views:
+            raise ValueError(
+                f"num_views={self.num_views} trains one item at a time "
+                f"(its views as the rows); got {images_lr.shape[0]} rows. "
+                "The JAX package's mask broadcast fails there too "
+                "(ROADMAP.md C7)")
         img_sr, feats_lr, feat_hr = self.encode(images_lr, train=train)
         preds_lr = self.query_mr(feats_lr, feat_hr, points_hr, calibs)
         preds_hr = self.query_sr(feats_lr, feat_hr, points_lr, calibs,
@@ -178,7 +212,8 @@ def surs_net_from_config(cfg, device, seed: int | None = None) -> SuRSNet:
         n_block=tuple(cfg.n_block),
         residual=cfg.residual, scale=cfg.scale, load_size=cfg.loadSize,
         z_size=cfg.z_size, w_mlp1=cfg.mlp1, w_mlp2=cfg.mlp2,
-        w_sr=cfg.srweight, w_disp=cfg.dispweight)
+        w_sr=cfg.srweight, w_disp=cfg.dispweight, remat=cfg.remat,
+        remat_encoder=cfg.remat_encoder)
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     init_weights(net, gen)
     return net.to(device).set_trunk_dtype(_DTYPES[cfg.dtype]).eval()

@@ -60,13 +60,18 @@ class Reconstructor:
     K4 when the geometry allows it. Otherwise the generic dense path or
     the mono octree (both through K1) runs; 'hostloop', 'fused' and
     'mono' all name the mono octree. ``load_size`` and ``z_size`` default
-    to the model's."""
+    to the model's. A multi-view model raises: it trains only."""
 
     def __init__(self, model, weights: FusedWeights, device,
                  feature_dtype: torch.dtype = torch.float32,
                  octree_mode: str = "mono", cols_weights=None,
                  load_size: Optional[int] = None,
                  z_size: Optional[float] = None):
+        if model.num_views != 1:
+            raise ValueError(
+                f"num_views={model.num_views}: the JAX package has no "
+                "multi-view serving path (its classifier averages views "
+                "that a single image does not have; ROADMAP.md C7)")
         self.model = model
         self.weights = weights
         self.device = torch.device(device)

@@ -7,8 +7,11 @@ model is built once, then (image, mask) pairs become OBJ mesh pairs.
 
 The weights come from ``cfg.load_netG_checkpoint_path`` (a port
 ``netG_*`` file or a reference state dict, compat/torch_import.py), from
-``params=`` (a Flax params tree) or, with neither, at random from
-``cfg.seed``.
+``params=`` (a Flax params tree, or the JAX service's ``{"params",
+"batch_stats"}`` of a batch-norm model) or, with neither, at random from
+``cfg.seed``. A batch-norm model serves with its running statistics; a
+multi-view model (``num_views`` > 1) does not serve, as in the JAX
+package.
 
 Images are HxWx3 uint8/float arrays (masked and normalised to [-1, 1]
 inside). Point queries go through kernel K1 (ops/fused_mlp.py) on the
@@ -53,7 +56,8 @@ def normalize_image(image, mask) -> Tuple[np.ndarray, Optional[np.ndarray]]:
 
 class SuRSService:
     """``params``: optional Flax params tree (numpy leaves) of the JAX
-    package's SuRSNet, loaded through the weight bridge; otherwise the
+    package's SuRSNet, or its variables ``{"params", "batch_stats"}``,
+    loaded through the weight bridge; otherwise the
     weights come from ``cfg.load_netG_checkpoint_path`` through
     ``load_netG``, or at random from ``cfg.seed`` without one; giving
     both raises. ``device`` defaults to CUDA and raises when no GPU is

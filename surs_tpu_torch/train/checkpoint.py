@@ -1,8 +1,9 @@
 """Train-state checkpoints (counterpart of
 ``surs_tpu/train/checkpoint.py``).
 
-``torch.save`` of the model's state_dict, the optimizer's state_dict and
-the step, under the reference's names:
+``torch.save`` of the model's state_dict (a batch-norm model's running
+statistics included), the optimizer's state_dict and the step, under the
+reference's names:
 ``{checkpoints_path}/{name}/netG_epoch_{N}`` and ``netG_latest``. The
 full train state is saved, so a resume is exact. ``load_model_state``
 reads such a file, or a reference ``torch.save(netG.state_dict())``

@@ -23,8 +23,9 @@ collated batches in the training dataset's item format (``img_LR``
 ``labels_HR`` [B, 1, N]); the epoch meshes then need ``gen_items`` or
 ``no_gen_mesh``.
 
-``--fused_train`` on CUDA takes the fused step (kernel K2); every other
-case, the CPU included, takes the plain step. The JAX package's packed
+``--fused_train`` on CUDA takes the fused step (kernel K2) unless the
+model has batch norms or more than one view, as in the JAX package; every
+other case, the CPU included, takes the plain step. The JAX package's packed
 host-to-device transfer (``pack_h2d``) is a TPU-link measure and is not
 carried over.
 """
@@ -102,9 +103,20 @@ def batch_to_device(batch: Mapping, device, quantize_images: bool = False
     return _to_device(batch_host_arrays(batch, quantize_images), device)
 
 
+def fused_step_applies(cfg, device) -> bool:
+    """Whether train() takes the fused step (K2): ``--fused_train`` on
+    CUDA for a group-norm, single-view model, the JAX loop's conditions
+    (``surs_tpu/train/loop.py:116-118``); else the plain step."""
+    return (cfg.fused_train and cfg.norm != "batch" and cfg.num_views == 1
+            and torch.device(device).type == "cuda")
+
+
 def _gen_meshes(cfg, model, device, gen_items, epoch: int) -> None:
     """The epoch's meshes of the first ``num_gen_mesh_test`` items of
-    each phase, through the serving pipeline (kernel K1 on the card)."""
+    each phase, through the serving pipeline (kernel K1 on the card);
+    the eval encode normalises with the running statistics of a
+    batch-norm model. A multi-view model raises here, after the epoch's
+    checkpoint, as the JAX package fails in its epoch meshes."""
     dtype = _DTYPES[cfg.feature_dtype]
     rec = Reconstructor(model, prepare_fused_weights(
         model.mlp_lr, model.mlp_hr, dtype=dtype), device,
@@ -192,7 +204,7 @@ def _run(cfg, loader, max_iters, device, gen_items, on_step, datasets,
 
     model = surs_net_from_config(cfg, device)
     state = create_train_state(model, make_optimizer(cfg, model.parameters()))
-    if cfg.fused_train and device.type == "cuda":
+    if fused_step_applies(cfg, device):
         from .fused_step import make_fused_train_step
         step_fn = make_fused_train_step(model, state.optimizer)
     else:

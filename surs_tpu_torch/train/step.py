@@ -71,7 +71,9 @@ def make_step(loss_fn: Callable) -> Callable:
 
 
 def make_train_step(model: SuRSNet, optimizer) -> Callable:
-    """The plain step: autograd through the model's whole forward.
+    """The plain step: autograd through the model's whole forward; a
+    batch-norm model's running statistics move once a step, in the
+    forward (also under ``remat_encoder``).
     ``model`` and ``optimizer`` are those the state will carry; the
     arguments keep the JAX signature."""
     del model, optimizer
@@ -79,8 +81,9 @@ def make_train_step(model: SuRSNet, optimizer) -> Callable:
 
 
 def make_eval_loss_step(model: SuRSNet) -> Callable:
-    """Loss-only forward for validation (eval encode: last stack only):
-    ``step(batch) -> errors``."""
+    """Loss-only forward for validation (eval encode: last stack only;
+    batch norms normalise with their running statistics and leave them
+    alone): ``step(batch) -> errors``."""
 
     @torch.no_grad()
     def step(batch: Dict) -> Dict:

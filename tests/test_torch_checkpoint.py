@@ -131,11 +131,19 @@ def test_dead_and_unknown_keys_are_skipped():
 
 
 def test_batch_norm_running_stats_raise_naming_a16():
-    net = SuRSNet(load_size=32, num_stack_lr=1)
+    """Running statistics are read since ROADMAP.md A16: into a
+    batch-norm model's ``bn`` module as Flax's ``mean``; a group-norm
+    model has no place for them and skips them."""
     sd = {"image_filter_lr.m0.b1_2.bn1.running_mean":
-          np.zeros(128, np.float32)}
-    with pytest.raises(NotImplementedError, match="A16"):
-        reference_to_flax(sd, net)
+          np.arange(256, dtype=np.float32)}
+    tree, n = reference_to_flax(sd, SuRSNet(load_size=32, num_stack_lr=1,
+                                            norm="batch"))
+    assert n == 1
+    np.testing.assert_array_equal(
+        tree["image_filter_lr"]["m0"]["b1_2"]["bn1"]["bn"]["mean"],
+        sd["image_filter_lr.m0.b1_2.bn1.running_mean"])
+    assert reference_to_flax(sd, SuRSNet(load_size=32, num_stack_lr=1)) \
+        == ({}, 0)
 
 
 def test_shape_mismatch_raises():

@@ -119,7 +119,13 @@ def test_auto_table():
     ("mc_backend", "sharded"), ("remat", True),
     ("remat_encoder", True), ("with_color", True)])
 def test_unported_values_raise(field, value):
+    """Values whose path is not ported raise naming their ROADMAP.md
+    item; remat and remat_encoder are ported (ROADMAP.md A19) and
+    resolve."""
     cfg = dataclasses.replace(SuRSConfig(), **{field: value})
+    if field in ("remat", "remat_encoder"):
+        assert getattr(resolve_config(cfg, "cpu"), field) is value
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         resolve_config(cfg, "cpu")
 
@@ -135,6 +141,13 @@ def test_dense_and_runs_values_resolve(field, value):
 
 
 def test_batch_norm_trunk_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SuRSService(dataclasses.replace(SuRSConfig(**COMMON), norm="batch"),
-                    device="cpu")
+    """Batch-norm trunks are ported (ROADMAP.md A16): the service builds
+    one and serves a field; tests/test_torch_configs.py holds it to the
+    JAX service."""
+    svc = SuRSService(dataclasses.replace(SuRSConfig(**COMMON), norm="batch"),
+                      device="cpu")
+    assert hasattr(svc.model.image_filter_lr.conv2.bn1, "bn")
+    img, mask = subject()
+    sdf_hr, sdf_lr = svc.fields(img, mask)
+    assert tuple(sdf_lr.shape) == (32, 32, 32)
+    assert bool(torch.isfinite(sdf_hr).all() & torch.isfinite(sdf_lr).all())

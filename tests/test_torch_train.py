@@ -661,10 +661,17 @@ def test_train_containment_device_follows_the_workers(tmp_path, capsys,
 @pytest.mark.parametrize("field,value", [("remat", True),
                                          ("remat_encoder", True),
                                          ("norm", "batch")])
-def test_train_unported_knobs_raise(tmp_path, field, value):
+def test_train_unported_knobs_raise(tmp_path, field, value, monkeypatch):
+    """remat, remat_encoder and batch norm are ported (ROADMAP.md A16,
+    A19): train() builds the model with them and runs (an empty loader:
+    no step, the epoch's checkpoint)."""
+    real, built = train_loop.surs_net_from_config, []
+    monkeypatch.setattr(train_loop, "surs_net_from_config",
+                        lambda *a: built.append(real(*a)) or built[-1])
     cfg = dataclasses.replace(tiny_cfg(tmp_path), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train(cfg, [], device="cpu")
+    assert train(cfg, [], device="cpu")["iters"] == 0
+    assert getattr(built[0], field) == value
+    assert (tmp_path / "ckpt" / "t" / "netG_latest").is_file()
 
 
 def test_train_needs_a_device_or_a_gpu(tmp_path):
