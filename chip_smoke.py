@@ -107,6 +107,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
               float32 service loaded from that file and one given the
               same weights through params= give the same fields at
               128^3.
+ 9f. color:   the color branch at full width. The humanoid's HR mesh
+              (probes/subject_demo.humanoid_mesh, 129,616 faces) written
+              with position-coded vertex colors (save_obj_mesh_with_color),
+              its views at 512 for 4 yaws and its UV layout at 512
+              (render_uv_dataset) on the card, the UV maps rendered again
+              on the CPU: mask share and largest position gap. Then
+              ResBlkColorNet (mlp_dim_color 513-1024-512-256-128-3, its
+              filter on the 256^2 LR image) trained 300 Adam steps at
+              batch 2 on TrainDataset items with num_sample_color 5,000:
+              the mean loss of the last 10 steps below the first 10's and
+              the mean absolute color error at the ground-truth vertices
+              below its step-0 value. Then the eval CLI with --with_color
+              at 512^3 on one PNG pair, the eval phase's reference netG
+              and a seeded reference ResBlkPIFuNet netC
+              (tests/fixtures/ref_netC_state_spec.json, every tensor
+              imported into RefColorNet); K1's launch count zeroed just
+              before and read just after (> 0); the _HR_color.obj holds a
+              color in [0, 1] for every vertex of _HR.obj; the card's
+              colors of the first 4,096 vertices equal the port's CPU
+              RefColorNet's on the same inputs within COLOR_CPU_TOL;
+              colorize_s, the color write's seconds, the vertices and the
+              card's peak memory.
  10. dense:   SuRSService(use_octree=False) serves one subject at 512^3
               through K3 (K3's and K1's launch counts zeroed just before
               and read just after: K3 > 0, K1 = 0), with its time by
@@ -2796,9 +2818,291 @@ def phase_accuracy(out_dir: str, device: str = "cuda"):
     return rec
 
 
+# the color phase (the color branch, ROADMAP.md A11): the humanoid's
+# four views and UV layout at 512, ResBlkColorNet trained at full width
+# on UV-sampled colors, then the eval CLI with --with_color at 512^3 and
+# a reference-style netC
+COLOR_YAWS = [0, 90, 180, 270]
+COLOR_UV_SIZE = 512
+COLOR_SAMPLES = 5_000            # num_sample_color of an item
+COLOR_SIGMA = 0.005              # the samples' jitter along the normal
+COLOR_ITEMS = 16                 # items drawn once, cycled by the steps
+COLOR_BATCH = 2
+COLOR_STEPS = 300
+COLOR_LR = 1e-3
+NETC_SPEC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests", "fixtures", "ref_netC_state_spec.json")
+# the card's RefColorNet colors against the port's CPU RefColorNet on the
+# same inputs (float32, TF32 off on the card, the rows independent): the
+# same products and instance norms summed in other orders, ~1e-6
+# relative in the maps, on colors in [0, 1]
+COLOR_CPU_TOL = 1e-4
+COLOR_CPU_VERTS = 4096
+# the UV maps on the card against the same renderer on the CPU: the mask
+# share (the view renderer's ACC_MASK_SHARE) and the largest position
+# gap where both are set (float32 interpolation in another order)
+UV_MASK_SHARE = 0.999
+UV_POS_TOL = 1e-5
+# flat lighting for the UV renders (Y00 alone, irradiance 1): UV_RENDER
+# then carries the vertex colors themselves, the position code that the
+# trained net's colors are scored against
+FLAT_SH = np.array([1.0 / 0.28209479177387814] + [0.0] * 8, np.float32)
+
+
+def reference_netc(seed: int = SEED, scale: float = 0.05):
+    """A reference ResBlkPIFuNet (netC) state dict: every key and shape
+    of ``tests/fixtures/ref_netC_state_spec.json`` (the 513-wide MLP),
+    zero-mean seeded weights."""
+    import torch
+    with open(NETC_SPEC) as f:
+        spec = json.load(f)
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32) * scale)
+        for k, shape in sorted(spec.items())}
+
+
+def color_dataset(root: str, device: str = "cuda") -> dict:
+    """The humanoid's HR mesh with position-coded vertex colors
+    (GEO/OBJ/h0_HR.obj through save_obj_mesh_with_color), its RENDER /
+    MASK / PARAM views at COLOR_YAWS and its UV layout at COLOR_UV_SIZE
+    under flat lighting, both rendered on ``device``; the UV maps also
+    rendered on the CPU and held to the card's."""
+    import torch
+    from surs_tpu_torch.probes import subject_demo as sd
+    from surs_tpu_torch.recon.mesh_io import (load_obj,
+                                              save_obj_mesh_with_color)
+    from surs_tpu_torch.render import render_dataset, render_uv_dataset
+    from surs_tpu_torch.render.uv import render_uv_maps
+    from surs_tpu_torch.utils.exr import read_exr
+
+    obj_dir = os.path.join(root, "GEO", "OBJ")
+    os.makedirs(obj_dir, exist_ok=True)
+    verts, faces = sd.humanoid_mesh(sd.HR_DETAIL, device=device)
+    lo, hi = verts.min(0), verts.max(0)
+    colors = (verts - lo) / (hi - lo)
+    obj = os.path.join(obj_dir, f"{sd.SUBJECT}_HR.obj")
+    save_obj_mesh_with_color(obj, verts, faces, colors)
+    with open(os.path.join(root, "val.txt"), "w"):
+        pass
+    step = 360 // len(COLOR_YAWS)
+    render_dataset(obj_dir, root, load_size=full_width_config().loadSize,
+                   yaw_step=step, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_uv_dataset(obj_dir, root, uv_size=COLOR_UV_SIZE, yaw_step=step,
+                      sh_coeffs=FLAT_SH, device=device)
+    torch.cuda.synchronize()
+    uv_s = time.perf_counter() - t0
+    v, f, c = load_obj(obj, with_colors=True)
+    maps = {}
+    for dev in ("card", "cpu"):
+        t0 = time.perf_counter()
+        maps[dev] = render_uv_maps(v, f, colors=c, uv_size=COLOR_UV_SIZE,
+                                   device=device if dev == "card" else "cpu")
+        torch.cuda.synchronize()
+        maps[dev + "_s"] = time.perf_counter() - t0
+    (pos_c, _, _, m_c), (pos_h, _, _, m_h) = maps["card"], maps["cpu"]
+    both = m_c & m_h
+    written = read_exr(os.path.join(root, "UV_POS", sd.SUBJECT, "00.exr"))
+    return {"faces": int(f.shape[0]), "vertices": int(v.shape[0]),
+            "colors_read": c is not None and c.shape == v.shape,
+            "uv_dataset_s": uv_s, "uv_maps_card_s": maps["card_s"],
+            "uv_maps_cpu_s": maps["cpu_s"],
+            "uv_texels": int(m_c.sum()),
+            "uv_mask_agree": float((m_c == m_h).mean()),
+            "uv_pos_max_gap": float(np.abs(pos_c[both] - pos_h[both]).max()),
+            "uv_pos_file_equal": bool(np.array_equal(written, pos_c)),
+            "verts": v, "colors": c}
+
+
+def color_train(root: str, data: dict, device: str = "cuda") -> dict:
+    """ResBlkColorNet at full width (mlp_dim_color 513-1024-512-256-128-3,
+    its filter on the 256^2 LR image) trained COLOR_STEPS Adam steps on
+    TrainDataset items with num_sample_color COLOR_SAMPLES; the mean
+    absolute color error at the ground-truth HR vertices, seen from view
+    0, against their position code before and after."""
+    import torch
+    from surs_tpu_torch.config import SuRSConfig
+    from surs_tpu_torch.data.datasets import TrainDataset
+    from surs_tpu_torch.models.pifu_legacy import ResBlkColorNet
+    from surs_tpu_torch.train import color
+
+    base = full_width_config()
+    cfg = SuRSConfig(dataroot=root, loadSize=base.loadSize,
+                     num_sample_inout=0, num_sample_color=COLOR_SAMPLES,
+                     sigma=COLOR_SIGMA, b_min=[-1.0] * 3, b_max=[1.0] * 3,
+                     learning_rate=COLOR_LR, seed=SEED)
+    ds = TrainDataset(cfg, "train", yaw_list=COLOR_YAWS,
+                      contains_device=device)
+    t0 = time.perf_counter()
+    items = [ds.get_item(i % len(ds), np.random.default_rng(SEED + i))
+             for i in range(COLOR_ITEMS)]
+    item_s = (time.perf_counter() - t0) / COLOR_ITEMS
+    net = ResBlkColorNet(mlp_dim_color=tuple(base.mlp_dim_color),
+                         load_size=base.loadSize)
+    state = color.create_color_state(
+        net, cfg, torch.Generator().manual_seed(SEED), device)
+    step = color.make_color_train_step(cfg.color_loss_type)
+    view = items[0]
+
+    def vertex_error():
+        rgb = color.colorize_vertices(state.net, view["img_LR"][None],
+                                      data["verts"], view["calib"][None])
+        return float(np.abs(rgb - data["colors"]).mean())
+
+    err0 = vertex_error()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(COLOR_STEPS):
+        group = [items[(COLOR_BATCH * i + j) % COLOR_ITEMS]
+                 for j in range(COLOR_BATCH)]
+        batch = {"images": np.stack([it["img_LR"] for it in group]),
+                 "points": np.stack([it["color_samples"] for it in group]),
+                 "calibs": np.stack([it["calib"] for it in group]),
+                 "rgbs": np.stack([it["rgbs"].T for it in group])}
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    return {"items": COLOR_ITEMS, "item_s": item_s,
+            "samples": COLOR_SAMPLES, "batch": COLOR_BATCH,
+            "steps": COLOR_STEPS, "step_s": steps_s / COLOR_STEPS,
+            "loss_first10": float(np.mean(losses[:10])),
+            "loss_last10": float(np.mean(losses[-10:])),
+            "losses_finite": bool(np.isfinite(losses).all()),
+            "vertex_err_step0": err0, "vertex_err": vertex_error()}
+
+
+def color_eval(out_dir: str) -> dict:
+    """The eval CLI (main()) with --with_color at full width and
+    EVAL_RESOLUTION^3 on one PNG pair, the reference-style netG of the
+    eval phase and a seeded reference netC; K1's launch count zeroed
+    just before and read just after. The card's colors of the first
+    COLOR_CPU_VERTS vertices against the port's RefColorNet on the CPU
+    on the same inputs."""
+    import contextlib
+    import io
+
+    import torch
+    from surs_tpu_torch.apps import eval_surs
+    from surs_tpu_torch.compat.torch_import import load_netC
+    from surs_tpu_torch.ops.fused_mlp import fused_dual_mlp
+    from surs_tpu_torch.recon.mesh_io import load_obj
+    from surs_tpu_torch.train import color
+
+    root = os.path.join(out_dir, "color_in")
+    for sub in ("image_final", "mask_final"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    img, mask = synthetic_subject(0)
+    write_png(os.path.join(root, "image_final", "subject0.png"), img)
+    write_png(os.path.join(root, "mask_final", "subject0.png"), mask)
+    netg, netc = (os.path.join(out_dir, n) for n in ("ref_netG", "ref_netC"))
+    torch.save(reference_state_dict(), netg)
+    torch.save(reference_netc(), netc)
+    cfg = full_width_config(resolution=EVAL_RESOLUTION, residual=True,
+                            with_color=True, load_netC_checkpoint_path=netc)
+    args = ["--dataroot", root, "--name", "color", *cli_args(cfg),
+            "--load_netG_checkpoint_path", netg, "--with_color",
+            "--load_netC_checkpoint_path", netc, "--results_path", out_dir]
+    seen, recs = {}, []
+    colorize_ref, colorize_mesh = (color.colorize_vertices_ref,
+                                   eval_surs.colorize_mesh)
+
+    def spy_colorize(net, image, im_feat, verts, calib, **kw):
+        seen.update(image=np.asarray(image), verts=verts,
+                    calib=np.asarray(calib), feat_dtype=str(im_feat.dtype),
+                    im_feat=im_feat.float().cpu().numpy())
+        seen["rgb"] = colorize_ref(net, image, im_feat, verts, calib, **kw)
+        return seen["rgb"]
+
+    def spy_mesh(*a, **kw):
+        torch.cuda.reset_peak_memory_stats()
+        recs.append(colorize_mesh(*a, **kw))
+        recs[-1]["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return recs[-1]
+
+    log = io.StringIO()
+    color.colorize_vertices_ref = spy_colorize
+    eval_surs.colorize_mesh = spy_mesh
+    try:
+        torch.cuda.synchronize()
+        fused_dual_mlp.launches = 0          # the color eval path starts here
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            eval_surs.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = fused_dual_mlp.launches   # the color eval path ends here
+    finally:
+        color.colorize_vertices_ref = colorize_ref
+        eval_surs.colorize_mesh = colorize_mesh
+    text = log.getvalue()
+    p_hr = os.path.join(out_dir, "color", "subject0_HR.obj")
+    hr_v, _ = load_obj(p_hr)
+    cv, cf, cc = load_obj(p_hr[:-4] + "_color.obj", with_colors=True)
+    n = min(COLOR_CPU_VERTS, hr_v.shape[0])
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_net, is_ref = load_netC(cfg, "cpu")
+    t0 = time.perf_counter()
+    cpu_rgb = color.colorize_vertices_ref(
+        cpu_net, seen["image"], seen["im_feat"], seen["verts"][:n],
+        seen["calib"], chunk=n)
+    cpu_s = time.perf_counter() - t0
+    rec = {"seconds": seconds, "k1_launches": launches,
+           "netc_imported": "imported 40 netC tensors" in text,
+           "netc_is_ref": is_ref, "im_feat_dtype": seen["feat_dtype"],
+           "hr_vertices": int(hr_v.shape[0]),
+           "color_vertices": int(cv.shape[0]),
+           "color_faces": int(cf.shape[0]),
+           "colors_in_unit": bool(cc is not None and cc.min() >= 0.0
+                                  and cc.max() <= 1.0),
+           "color_std": float(cc.std()) if cc is not None else 0.0,
+           "card_vs_cpu_max_gap": float(np.abs(seen["rgb"][:n]
+                                               - cpu_rgb).max()),
+           "card_vs_cpu_vertices": n, "cpu_colorize_s": cpu_s,
+           "tol": COLOR_CPU_TOL, **recs[0]}
+    clear_objs(os.path.join(out_dir, "color"))
+    return rec
+
+
+def phase_color(out_dir: str, device: str = "cuda"):
+    """The color branch at full width: the humanoid's dataset with its UV
+    layout (render_uv_dataset on the card, held to the CPU renderer),
+    ResBlkColorNet trained on its UV-sampled colors, and the eval CLI
+    with --with_color at 512^3 through K1 and a reference netC."""
+    import torch
+    root = os.path.join(out_dir, "color_data")
+    data = color_dataset(root, device)
+    rec = {"phase": "color",
+           "data": {k: v for k, v in data.items()
+                    if k not in ("verts", "colors")}}
+    rec["train"] = color_train(root, data, device)
+    torch.cuda.empty_cache()
+    rec["eval"] = color_eval(out_dir)
+    torch.cuda.empty_cache()
+    emit(rec)
+    d, tr, ev = rec["data"], rec["train"], rec["eval"]
+    if not (d["colors_read"] and d["uv_texels"] > 0
+            and d["uv_mask_agree"] >= UV_MASK_SHARE
+            and d["uv_pos_max_gap"] <= UV_POS_TOL and d["uv_pos_file_equal"]
+            and tr["losses_finite"]
+            and tr["loss_last10"] < tr["loss_first10"]
+            and tr["vertex_err"] < tr["vertex_err_step0"]
+            and ev["k1_launches"] > 0 and ev["netc_imported"]
+            and ev["netc_is_ref"]
+            and ev["color_vertices"] == ev["hr_vertices"] == ev["vertices"]
+            and ev["hr_vertices"] > 0 and ev["colors_in_unit"]
+            and ev["color_std"] > 0
+            and ev["card_vs_cpu_max_gap"] <= COLOR_CPU_TOL):
+        raise AssertionError(f"color failed: {rec}")
+    return rec
+
+
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "containment", "serve",
-          "check", "stages", "native_io", "tets", "cli", "eval", "dense",
-          "runs", "train", "train_check", "configs", "train_data",
+          "check", "stages", "native_io", "tets", "cli", "eval", "color",
+          "dense", "runs", "train", "train_check", "configs", "train_data",
           "precompute", "accuracy")
 # run only when named in --phases
 EXTRA_PHASES = ("train_profile", "serve_profile")
@@ -2853,6 +3157,9 @@ def main() -> int:
             phase_cli(out_dir)
         if "eval" in phases:
             phase_eval(out_dir)
+        if "color" in phases:
+            phase_color(out_dir)
+            torch.cuda.empty_cache()
         if "serve_profile" in phases:
             phase_serve_profile(subjects)
         if "dense" in phases:

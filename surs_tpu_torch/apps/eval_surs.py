@@ -12,15 +12,55 @@
 state dict; without one the weights are random from ``--seed``. Runs on
 CUDA and raises without a GPU; ``--device cpu`` runs on the CPU.
 ``--octree_mode`` picks the octree evaluator, as in the JAX CLI.
+
+``--with_color --load_netC_checkpoint_path <netC>`` also writes
+``<image>_HR_color.obj``: the HR mesh read back from its file, each
+vertex colored by the color net (``compat/torch_import.py:load_netC``: a
+reference ResBlkPIFuNet state dict, which also samples netG's last lr
+map, a port ResBlkColorNet state_dict or a JAX param tree), in float32
+with TF32 off (``train/color.py``). ``--with_color`` without a netC
+writes no color OBJ, as the JAX CLI, and says so.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
+from typing import Optional
+
+
+def colorize_mesh(service, color_net, is_ref: bool, data: dict,
+                  p_hr: str) -> Optional[dict]:
+    """Color ``p_hr``'s vertices as read back from the file and write
+    ``p_hr[:-4] + "_color.obj"``; returns {vertices, colorize_s,
+    write_s}, or None for an empty mesh."""
+    from ..recon.mesh_io import load_obj, save_obj_mesh_with_color
+    from ..train.color import colorize_vertices, colorize_vertices_ref
+
+    verts, faces = load_obj(p_hr)
+    if verts.shape[0] == 0:
+        print(f"empty HR mesh for {data['name']} — skip color")
+        return None
+    t0 = time.perf_counter()
+    if is_ref:
+        _, feats_lr, _ = service.rec.encode(data["img_LR"])
+        rgb = colorize_vertices_ref(color_net, data["img_LR"], feats_lr[-1],
+                                    verts, data["calib"])
+    else:
+        rgb = colorize_vertices(color_net, data["img_LR"], verts,
+                                data["calib"])
+    t1 = time.perf_counter()
+    save_obj_mesh_with_color(p_hr[:-4] + "_color.obj", verts, faces, rgb)
+    rec = {"vertices": int(verts.shape[0]), "colorize_s": t1 - t0,
+           "write_s": time.perf_counter() - t1}
+    print(f"color {data['name']}: {rec['vertices']} vertices, colorize "
+          f"{rec['colorize_s']:.3f} s, write {rec['write_s']:.3f} s")
+    return rec
 
 
 def main(argv=None) -> None:
+    from ..compat.torch_import import load_netC
     from ..config import (build_parser, config_from_args, print_config,
                           resolve_config, resolve_device)
     from ..data.datasets import EvalDataset
@@ -40,6 +80,13 @@ def main(argv=None) -> None:
     dataset = EvalDataset(cfg)
     print("test data size:", len(dataset))
     service = SuRSService(cfg, device=device)
+    color_net, is_ref = None, False
+    if cfg.with_color:
+        if cfg.load_netC_checkpoint_path:
+            color_net, is_ref = load_netC(cfg, device)
+        else:
+            print("--with_color: no netC given (--load_netC_checkpoint_path)"
+                  "; no color OBJ is written")
 
     out_dir = os.path.join(cfg.results_path, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
@@ -47,7 +94,9 @@ def main(argv=None) -> None:
     for idx in range(len(dataset)):
         data = dataset[idx]
         save_path = os.path.join(out_dir, f"{data['name']}.obj")
-        service.rec.gen_mesh(service.cfg, data, save_path)
+        p_hr, _ = service.rec.gen_mesh(service.cfg, data, save_path)
+        if color_net is not None:
+            colorize_mesh(service, color_net, is_ref, data, p_hr)
         print("saved", save_path)
 
 

@@ -7,8 +7,9 @@
 
 Every ``<dataroot>/GEO/OBJ/<subject>_HR.obj`` is rendered by the port's
 rasterizer on CUDA (``--device cpu`` to opt out; raises without a GPU).
-``--prt`` (PRT shading, ROADMAP.md A14) and ``--uv`` (the UV-space
-color-supervision renders, ROADMAP.md A11) are not ported and raise.
+``--uv`` also writes the color branch's UV-space renders (UV_RENDER /
+UV_MASK / UV_POS / UV_NORMAL, ``render/uv.py``) at ``--uv_size``.
+``--prt`` (PRT shading, ROADMAP.md A14) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prt", action="store_true",
                     help="PRT shading: not ported (ROADMAP.md A14)")
     ap.add_argument("--uv", action="store_true",
-                    help="UV-space renders: not ported (ROADMAP.md A11)")
+                    help="also render the UV-space color-supervision "
+                         "layout (UV_RENDER/UV_MASK/UV_POS/UV_NORMAL)")
     ap.add_argument("--uv_size", type=int, default=512)
     ap.add_argument("--device", default=None,
                     help="torch device; default CUDA")
@@ -37,18 +39,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    from ..render import render_dataset
+    from ..render import render_dataset, render_uv_dataset
 
     args = build_parser().parse_args(argv)
-    if args.uv:
-        raise NotImplementedError(
-            "UV renders (render/uv.py: UV_RENDER / UV_MASK / UV_POS / "
-            "UV_NORMAL) are not ported yet (ROADMAP.md A11 color branch)")
     obj_dir = os.path.join(args.dataroot, "GEO", "OBJ")
     render_dataset(obj_dir, args.dataroot, load_size=args.loadSize,
                    yaw_step=args.yaw_step, patch=args.patch,
                    subjects=args.subjects, use_prt=args.prt,
                    device=args.device)
+    if args.uv:
+        render_uv_dataset(obj_dir, args.dataroot, uv_size=args.uv_size,
+                          yaw_step=args.yaw_step, subjects=args.subjects,
+                          device=args.device)
 
 
 if __name__ == "__main__":

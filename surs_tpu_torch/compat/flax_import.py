@@ -1,7 +1,9 @@
 """Weight bridge: a Flax ``params`` tree of the JAX package's SuRSNet
 (``surs_tpu/models/surs_net.py``), given as nested dicts of numpy
 arrays, or its variables ``{"params", "batch_stats"}`` (a batch-norm
-model), into the port's ``state_dict``.
+model), into the port's ``state_dict``; the same for the legacy PIFu
+nets and the color nets (``surs_tpu/models/pifu_legacy.py``: the
+backbones, ``MLP``, ``ConvPIFuNet``, ``ResBlkColorNet``, ``RefColorNet``).
 
 The port's submodules carry the Flax module names, so a param path maps
 onto a key by joining with dots; only the leaves change:

@@ -1,5 +1,6 @@
 """Reference checkpoints into the port (counterpart of
-``surs_tpu/compat/torch_import.py``, its netG part).
+``surs_tpu/compat/torch_import.py``): netG, the SuRS model, and netC, the
+color net.
 
 The reference saves ``torch.save(netG.state_dict())`` files. Its keys
 map onto the JAX package's Flax param paths, with the leaves in Flax's
@@ -25,7 +26,17 @@ bn4, and a bn4 without its downsample conv.
 port ``netG_*`` file strictly, a reference state dict as the JAX
 package does (non-strict, a count printed), the running statistics of
 a batch-norm model with it. The JAX package's orbax directories
-(ROADMAP.md A17) and netC, the color net (A11), are not read.
+(ROADMAP.md A17) are not read.
+
+``import_torch_color_state_dict`` loads a reference ResBlkPIFuNet
+state dict (netC) into the port's ``models/pifu_legacy.RefColorNet``,
+strictly: ResnetFilter's Sequential indices map onto its Flax names
+(1 the 7x7 stem, 4 / 7 the stride-2 downsamples, 10 + i the resnet block
+i, whose conv_block indices 1 and 5 are its two convs); the default
+``--norm_color instance`` carries no tensors. A key without a place
+raises ``KeyError``, never a silently random color net. ``load_netC``
+reads ``cfg.load_netC_checkpoint_path`` for the eval CLI's
+``--with_color``.
 """
 
 from __future__ import annotations
@@ -245,3 +256,100 @@ def load_netG(cfg, model: nn.Module) -> int:
     n = import_torch_state_dict(state, model)
     print(f"imported {n} tensors from torch checkpoint {path}")
     return n
+
+
+def _flax_path_netc(torch_key: str) -> Optional[Tuple[str, ...]]:
+    """A reference netC key -> its Flax param path without the leaf, or
+    None (``surs_tpu/compat/torch_import.py:_flax_path_netc``)."""
+    parts = torch_key.split(".")
+    if parts[0] == "surface_classifier" and len(parts) == 3:
+        return ("surface_classifier", parts[1])
+    if parts[0] == "image_filter" and len(parts) >= 4 \
+            and parts[1] == "model" and parts[2].isdigit():
+        idx = int(parts[2])
+        fixed = {1: "stem", 4: "down0", 7: "down1"}
+        if idx in fixed and len(parts) == 4:
+            return ("image_filter", fixed[idx])
+        if idx >= 10 and len(parts) == 6 and parts[3] == "conv_block":
+            cname = {"1": "conv1", "5": "conv2"}.get(parts[4])
+            if cname is not None:
+                return ("image_filter", f"block{idx - 10}", cname)
+    return None
+
+
+def import_torch_color_state_dict(state_dict: Mapping,
+                                  model: nn.Module) -> int:
+    """Load a reference netC (ResBlkPIFuNet) state dict into ``model``, a
+    ``RefColorNet``, strictly; returns the count of tensors loaded. An
+    unmappable key raises ``KeyError``; a missing parameter or a shape
+    that disagrees raises too."""
+    tree: Dict = {}
+    n = 0
+    for key, val in state_dict.items():
+        path = _flax_path_netc(key)
+        if path is None:
+            raise KeyError(
+                f"unmappable netC key {key!r}: only reference "
+                "ResBlkPIFuNet checkpoints trained with the default "
+                "--norm_color instance are importable")
+        arr = val.detach().cpu().numpy() if hasattr(val, "detach") \
+            else np.asarray(val)
+        leaf, arr = _convert_leaf(key, arr)
+        if leaf is None:
+            raise KeyError(f"unmappable netC key {key!r}: no parameter")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+        n += 1
+    state = flax_to_state_dict(tree)
+    target = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    for k, v in state.items():
+        if k in target and target[k] != tuple(v.shape):
+            raise ValueError(f"shape mismatch at {k}: {target[k]} vs "
+                             f"{tuple(v.shape)}")
+    model.load_state_dict(state, strict=True)
+    return n
+
+
+def load_netC(cfg, device) -> Tuple[nn.Module, bool]:
+    """The color net of ``cfg.load_netC_checkpoint_path`` on ``device``,
+    float32, and whether it is the reference's (``RefColorNet``, which
+    also samples netG's map) or the framework's (``ResBlkColorNet``), as
+    the JAX eval CLI chooses (``apps/eval_surs.py:82-122``):
+
+      * a port ``ResBlkColorNet`` state_dict (``color_mlp.*`` keys):
+        loaded strictly;
+      * any other state dict of tensors: a reference ResBlkPIFuNet,
+        imported strictly (:func:`import_torch_color_state_dict`);
+      * a pickled Flax param tree of numpy arrays (the JAX package's
+        ``ResBlkColorNet`` params): through the weight bridge, strictly.
+
+    The net takes ``cfg.loadSize``, ``cfg.mlp_dim_color`` and
+    ``cfg.z_size`` (the JAX CLI leaves z_size at the nets' 200.0, the
+    config's default too)."""
+    import torch
+
+    from ..models.pifu_legacy import RefColorNet, ResBlkColorNet
+    from .flax_import import load_flax_params
+
+    path = cfg.load_netC_checkpoint_path
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if not isinstance(obj, Mapping):
+        raise ValueError(f"{path}: not a netC state dict or param tree")
+    kw = dict(mlp_dim_color=tuple(cfg.mlp_dim_color), load_size=cfg.loadSize,
+              z_size=cfg.z_size)
+    tensors = [v for v in obj.values() if hasattr(v, "detach")]
+    if tensors and any(k.startswith("color_mlp.") for k in obj):
+        net = ResBlkColorNet(**kw)
+        net.load_state_dict(obj, strict=True)
+        is_ref = False
+    elif tensors:
+        net = RefColorNet(**kw)
+        n = import_torch_color_state_dict(obj, net)
+        print(f"imported {n} netC tensors (reference ResBlkPIFuNet)")
+        is_ref = True
+    else:
+        net = load_flax_params(ResBlkColorNet(**kw), obj)
+        is_ref = False
+    return net.to(device).float().eval(), is_ref

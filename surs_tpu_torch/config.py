@@ -205,7 +205,6 @@ AUTO = {
 # (knob, value) -> the ROADMAP.md item that ports it
 _UNPORTED = {
     ("mc_backend", "sharded"): "A13 multi-device",
-    ("with_color", True): "A11 color branch",
 }
 _PORTED = {
     "dtype": ("float32", "bfloat16"),

@@ -1,7 +1,8 @@
 // Host mesh code in C++: the port's own copy of the JAX package's native
 // mesh backend (csrc/mesh_native.cpp): marching tetrahedra with its
 // growing edge map (surs_marching_tetrahedra), the OBJ writer and reader
-// (surs_write_obj, surs_read_obj) and surs_free. Host code, not a kernel.
+// (surs_write_obj, surs_read_obj), the colored OBJ writer
+// (surs_write_obj_color) and surs_free. Host code, not a kernel.
 // Built with g++ at first use by ops/cuda_build.py and bound with ctypes
 // by recon/native.py; a plain C interface.
 //
@@ -16,6 +17,12 @@
 // sign written first (so a tie rounds away from zero and a small negative
 // writes -0.0000), faces "f v0 v2 v1", 1-based. recon/mesh_io.py's
 // save_obj_mesh_ref is the same format in numpy.
+//
+// The colored writer is the JAX package's save_obj_mesh_with_color, which
+// formats in Python: "v x y z r g b" with each value printed as '%.4f'
+// prints it (the double's exact value rounded to 4 decimals, a tie to
+// even, the sign of a negative value or of -0.0 kept), faces as above.
+// recon/mesh_io.py's save_obj_mesh_with_color_ref is its plain version.
 
 #include <cstdint>
 #include <cstdio>
@@ -128,6 +135,40 @@ inline char* fmt_fixed4(char* p, double v) {
   return p;
 }
 
+// '%.4f' of v as printf and Python print it. Below 1e5 the scaled value
+// |v| * 1e4 is within 6e-8 of the exact product, so its fraction decides
+// the rounding unless it lies within 1e-6 of a half; those values, and
+// |v| >= 1e5, inf and nan, go through snprintf. Writes at most 400 chars.
+inline char* fmt_pct4(char* p, double v) {
+  double a = std::fabs(v);
+  if (a < 1e5) {
+    double y = a * 10000.0;
+    double fl = std::floor(y);
+    double fr = y - fl;
+    if (std::fabs(fr - 0.5) >= 1e-6) {
+      long long scaled = (long long)fl + (fr > 0.5 ? 1 : 0);
+      if (std::signbit(v)) *p++ = '-';
+      long long ip = scaled / 10000;
+      int fp = (int)(scaled % 10000);
+      char tmp[24];
+      int n = 0;
+      do {
+        tmp[n++] = (char)('0' + ip % 10);
+        ip /= 10;
+      } while (ip);
+      while (n) *p++ = tmp[--n];
+      *p++ = '.';
+      *p++ = (char)('0' + fp / 1000);
+      *p++ = (char)('0' + (fp / 100) % 10);
+      *p++ = (char)('0' + (fp / 10) % 10);
+      *p++ = (char)('0' + fp % 10);
+      return p;
+    }
+  }
+  int n = std::snprintf(p, 400, "%.4f", v);
+  return p + (n < 400 ? n : 399);
+}
+
 // '%d' of a non-negative v
 inline char* fmt_int(char* p, long long v) {
   char tmp[24];
@@ -138,6 +179,49 @@ inline char* fmt_int(char* p, long long v) {
   } while (v);
   while (n) *p++ = tmp[--n];
   return p;
+}
+
+// Writes nverts lines "v" + vline(p, i) + "\n" (vline writes at most
+// vline_max chars at p and returns the end), then the faces as "f v0 v2
+// v1", 1-based, through a 4 MB buffer. Returns 0, or 1 when the file
+// cannot be opened, 2 when a write fails.
+template <class VertexLine>
+int write_obj_file(const char* path, int64_t nverts, size_t vline_max,
+                   const int64_t* faces, int64_t nfaces, VertexLine vline) {
+  FILE* f = std::fopen(path, "wb");
+  if (!f) return 1;
+  const size_t CAP = 1 << 22;
+  std::vector<char> buf(CAP + 256);
+  char* p = buf.data();
+  bool ok = true;
+  auto flush_if = [&](size_t need) {
+    if ((size_t)(p - buf.data()) + need > CAP) {
+      size_t len = (size_t)(p - buf.data());
+      ok = ok && std::fwrite(buf.data(), 1, len, f) == len;
+      p = buf.data();
+    }
+  };
+  for (int64_t i = 0; i < nverts; ++i) {
+    flush_if(vline_max + 2);
+    *p++ = 'v';
+    p = vline(p, i);
+    *p++ = '\n';
+  }
+  for (int64_t i = 0; i < nfaces; ++i) {
+    flush_if(80);
+    *p++ = 'f';
+    *p++ = ' ';
+    p = fmt_int(p, (long long)(faces[3 * i] + 1));
+    *p++ = ' ';
+    p = fmt_int(p, (long long)(faces[3 * i + 2] + 1));
+    *p++ = ' ';
+    p = fmt_int(p, (long long)(faces[3 * i + 1] + 1));
+    *p++ = '\n';
+  }
+  size_t len = (size_t)(p - buf.data());
+  ok = ok && std::fwrite(buf.data(), 1, len, f) == len;
+  ok = (std::fclose(f) == 0) && ok;
+  return ok ? 0 : 2;
 }
 
 }  // namespace
@@ -244,45 +328,31 @@ int surs_marching_tetrahedra(const float* vol, int64_t X, int64_t Y,
 // write fails.
 int surs_write_obj(const char* path, const double* verts, int64_t nverts,
                    const int64_t* faces, int64_t nfaces) {
-  FILE* f = std::fopen(path, "wb");
-  if (!f) return 1;
-  const size_t CAP = 1 << 22;
-  std::vector<char> buf(CAP + 256);
-  char* p = buf.data();
-  bool ok = true;
-  auto flush_if = [&](size_t need) {
-    if ((size_t)(p - buf.data()) + need > CAP) {
-      size_t len = (size_t)(p - buf.data());
-      ok = ok && std::fwrite(buf.data(), 1, len, f) == len;
-      p = buf.data();
-    }
-  };
-  for (int64_t i = 0; i < nverts; ++i) {
-    flush_if(96);
-    *p++ = 'v';
-    *p++ = ' ';
-    p = fmt_fixed4(p, verts[3 * i]);
-    *p++ = ' ';
-    p = fmt_fixed4(p, verts[3 * i + 1]);
-    *p++ = ' ';
-    p = fmt_fixed4(p, verts[3 * i + 2]);
-    *p++ = '\n';
-  }
-  for (int64_t i = 0; i < nfaces; ++i) {
-    flush_if(80);
-    *p++ = 'f';
-    *p++ = ' ';
-    p = fmt_int(p, (long long)(faces[3 * i] + 1));
-    *p++ = ' ';
-    p = fmt_int(p, (long long)(faces[3 * i + 2] + 1));
-    *p++ = ' ';
-    p = fmt_int(p, (long long)(faces[3 * i + 1] + 1));
-    *p++ = '\n';
-  }
-  size_t len = (size_t)(p - buf.data());
-  ok = ok && std::fwrite(buf.data(), 1, len, f) == len;
-  ok = (std::fclose(f) == 0) && ok;
-  return ok ? 0 : 2;
+  return write_obj_file(path, nverts, 96, faces, nfaces,
+                        [&](char* p, int64_t i) {
+                          for (int k = 0; k < 3; ++k) {
+                            *p++ = ' ';
+                            p = fmt_fixed4(p, verts[3 * i + k]);
+                          }
+                          return p;
+                        });
+}
+
+// verts [nverts, 3] and colors [nverts, 3] float64, faces [nfaces, 3]
+// int64 (0-based) -> the colored OBJ file at path ("v x y z r g b" lines
+// in '%.4f', then "f v0 v2 v1", 1-based). Returns as surs_write_obj.
+int surs_write_obj_color(const char* path, const double* verts,
+                         const double* colors, int64_t nverts,
+                         const int64_t* faces, int64_t nfaces) {
+  return write_obj_file(path, nverts, 6 * 401 + 8, faces, nfaces,
+                        [&](char* p, int64_t i) {
+                          for (int k = 0; k < 6; ++k) {
+                            *p++ = ' ';
+                            p = fmt_pct4(p, k < 3 ? verts[3 * i + k]
+                                                  : colors[3 * i + k - 3]);
+                          }
+                          return p;
+                        });
 }
 
 // Reads the "v" and "f" lines of an OBJ file: polygons fan-triangulated,

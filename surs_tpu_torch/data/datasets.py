@@ -4,7 +4,11 @@
   train: dataroot/{RENDER,MASK,PARAM}/<subject>/<yaw>_<pitch>_00.{jpg,png,npy},
          dataroot/GEO/OBJ/<subject>_{HR,LR}.obj, dataroot/val.txt, and
          optionally dataroot/SAMPLE_CACHE/<subject>_<draw>.npz
-         (``python -m surs_tpu_torch.apps.precompute_samples``)
+         (``python -m surs_tpu_torch.apps.precompute_samples``) and the
+         color branch's UV renders dataroot/UV_RENDER/<subject>/
+         <yaw>_<pitch>_00.jpg, UV_MASK/<subject>/00.png, UV_POS/
+         <subject>/00.exr, UV_NORMAL/<subject>/00.png
+         (``python -m surs_tpu_torch.apps.render_dataset --uv``)
   eval:  dataroot/{image_final,mask_final}/<name>.{jpg,png}, or
          ``cfg.img_path`` / ``cfg.mask_path`` for a single image
 
@@ -27,7 +31,7 @@ import numpy as np
 from ..config import resolve_device
 from ..recon.mesh_io import load_obj
 from .calib import AugParams, calib_from_param, sample_aug_params
-from .image import load_render_mask_pil, process_render
+from .image import _pil, load_render_mask_pil, process_render
 from .png import load_gray, load_rgb
 from .sampling import MeshData, sample_points_and_labels
 
@@ -40,8 +44,7 @@ def load_render_mask(render_path: str, mask_path: str
 
 
 class TrainDataset:
-    """THuman-style training set (``surs_tpu/data/datasets.py:32-264``,
-    without ``get_color_sampling``: the color branch is ROADMAP.md A11).
+    """THuman-style training set (``surs_tpu/data/datasets.py:32-264``).
 
     ``phase`` "train" or "test" splits the subjects by ``val.txt``
     (none listed: both phases hold every subject). Item ``index`` is
@@ -72,7 +75,11 @@ class TrainDataset:
         self.MASK = os.path.join(self.root, "MASK")
         self.PARAM = os.path.join(self.root, "PARAM")
         self.OBJ = os.path.join(self.root, "GEO", "OBJ")
+        # the color branch's UV-space renders (render/uv.py)
         self.UV_RENDER = os.path.join(self.root, "UV_RENDER")
+        self.UV_MASK = os.path.join(self.root, "UV_MASK")
+        self.UV_POS = os.path.join(self.root, "UV_POS")
+        self.UV_NORMAL = os.path.join(self.root, "UV_NORMAL")
         self.B_MIN = np.asarray(cfg.b_min, dtype=float)
         self.B_MAX = np.asarray(cfg.b_max, dtype=float)
         self.yaw_list = list(yaw_list) if yaw_list is not None \
@@ -85,10 +92,52 @@ class TrainDataset:
         self.contains_device = (resolve_device(contains_device)
                                 if contains_fn is None else None)
         self._sample_cache_paths: Dict[str, list] = {}
-        if cfg.num_sample_color and os.path.isdir(self.UV_RENDER):
-            raise NotImplementedError(
-                "color samples from UV renders (num_sample_color > 0) are "
-                "not ported yet (ROADMAP.md A11 color branch)")
+
+    def get_color_sampling(self, subject: str, yid: int, pid: int = 0,
+                           rng: Optional[np.random.Generator] = None
+                           ) -> Dict[str, np.ndarray]:
+        """Color supervision from the UV renders
+        (``surs_tpu/data/datasets.py:66-114``): ``cfg.num_sample_color``
+        texels inside the UV mask (without replacement unless the mask
+        has fewer), their surface position (UV_POS, ``utils/exr.py``)
+        moved along the texel normal by N(0, sigma), paired with the
+        yaw's UV_RENDER color in [-1, 1]. Returns {color_samples [3, n],
+        rgbs [3, n]} float32. Images are read with PIL."""
+        from ..utils.exr import read_exr
+
+        Image = _pil()[0]
+
+        rng = rng or np.random.default_rng()
+        yaw = self.yaw_list[yid]
+        pitch = self.pitch_list[pid]
+        uv_mask = np.asarray(Image.open(
+            os.path.join(self.UV_MASK, subject, "00.png")))
+        if uv_mask.ndim == 3:
+            uv_mask = uv_mask[..., 0]
+        uv_mask = uv_mask.reshape(-1) != 0
+        uv_render = np.asarray(Image.open(os.path.join(
+            self.UV_RENDER, subject, f"{yaw}_{pitch}_00.jpg")).convert("RGB"),
+            np.float32).reshape(-1, 3) / 255.0
+        uv_normal = np.asarray(Image.open(os.path.join(
+            self.UV_NORMAL, subject, "00.png")).convert("RGB"),
+            np.float32).reshape(-1, 3) / 255.0 * 2.0 - 1.0
+        uv_pos = read_exr(os.path.join(self.UV_POS, subject,
+                                       "00.exr")).reshape(-1, 3)
+
+        pts = uv_pos[uv_mask]
+        cols = uv_render[uv_mask]
+        nrm = uv_normal[uv_mask]
+        n = self.cfg.num_sample_color
+        if n:
+            sel = rng.choice(pts.shape[0], size=n, replace=pts.shape[0] < n)
+            pts, cols, nrm = pts[sel], cols[sel], nrm[sel]
+        offset = rng.normal(0.0, self.cfg.sigma, (pts.shape[0], 1))
+        samples = (pts + offset * nrm).T.astype(np.float32)
+        rgbs = (2.0 * cols - 1.0).T.astype(np.float32)
+        return {"color_samples": samples, "rgbs": rgbs}
+
+    def has_uv_renders(self) -> bool:
+        return os.path.isdir(self.UV_RENDER)
 
     def _get_subjects(self):
         all_subjects = os.listdir(self.RENDER)
@@ -197,6 +246,9 @@ class TrainDataset:
                     self.cfg.num_sample_inout, self.cfg.sigma, self.B_MIN,
                     self.B_MAX, rng, contains_fn=self._contains_fn,
                     device=self.contains_device))
+        if self.cfg.num_sample_color and self.has_uv_renders():
+            # color supervision rides the same item, from the same rng
+            item.update(self.get_color_sampling(subject, yid, pid, rng=rng))
         return item
 
     def _load_cached_samples(self, subject: str,

@@ -1,6 +1,5 @@
 """Training point sampling and occupancy / displacement labels (the
-port's copy of ``surs_tpu/data/sampling.py``, without the color branch's
-``sample_surface_colors``, ROADMAP.md A11):
+port's copy of ``surs_tpu/data/sampling.py``):
 
   * 4N area-weighted surface points of the HR mesh with N(0, sigma)
     jitter, plus N/4 uniform points of the box, shuffled;
@@ -8,7 +7,9 @@ port's copy of ``surs_tpu/data/sampling.py``, without the color branch's
     (``ops/containment.py``: the hand-written kernel on the card);
   * N/2 inside + N/2 outside points a mesh (fewer inside when fewer
     are);
-  * displacement labels: the HR occupancy at the LR-ordered samples.
+  * displacement labels: the HR occupancy at the LR-ordered samples;
+  * the color branch's supervision from per-vertex colors
+    (``sample_surface_colors``).
 
 The ``np.random.Generator`` calls are the JAX package's, in its order, so
 one seed gives the same samples.
@@ -56,6 +57,33 @@ def sample_surface(mesh: MeshData, n: int,
     w2 = r1 * r2
     return (w0[:, None] * tri[:, 0] + w1[:, None] * tri[:, 1]
             + w2[:, None] * tri[:, 2]).astype(np.float64)
+
+
+def sample_surface_colors(mesh: MeshData, vert_colors: np.ndarray, n: int,
+                          sigma: float, rng: np.random.Generator
+                          ) -> Dict[str, np.ndarray]:
+    """Color supervision from per-vertex colors in [0, 1]: n area-weighted
+    surface points moved along their face normal by N(0, sigma), with the
+    barycentric mix of the face's vertex colors mapped to [-1, 1].
+    Returns {color_samples [3, n], rgbs [3, n]} float32. The draws are
+    ``surs_tpu/data/sampling.py:70-95``'s, in its order."""
+    areas = mesh.face_areas()
+    probs = areas / areas.sum()
+    fidx = rng.choice(len(probs), size=n, p=probs)
+    tri = mesh.verts[mesh.faces[fidx]]                  # [n, 3, 3]
+    col = np.asarray(vert_colors, np.float64)[mesh.faces[fidx]]
+    r1 = np.sqrt(rng.random(n))
+    r2 = rng.random(n)
+    w = np.stack([1.0 - r1, r1 * (1.0 - r2), r1 * r2], axis=1)  # [n, 3]
+    pts = np.einsum("nk,nkd->nd", w, tri)
+    rgb = np.einsum("nk,nkd->nd", w, col)
+    normals = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    normals /= np.maximum(np.linalg.norm(normals, axis=1, keepdims=True),
+                          1e-12)
+    offset = rng.normal(0.0, sigma, (n, 1))
+    samples = pts + offset * normals
+    return {"color_samples": samples.T.astype(np.float32),
+            "rgbs": (2.0 * rgb - 1.0).T.astype(np.float32)}
 
 
 def sample_points_and_labels(

@@ -24,9 +24,12 @@ from .layers import leaky_relu
 class SurfaceClassifier(nn.Module):
     def __init__(self, filter_channels: Sequence[int],
                  res_layers: Sequence[int] = (2, 3, 4),
-                 no_residual: bool = False, num_views: int = 1):
+                 no_residual: bool = False, num_views: int = 1,
+                 sigmoid: bool = True, tanh: bool = False):
         super().__init__()
         self.dims = tuple(filter_channels)
+        self.sigmoid = sigmoid
+        self.tanh = tanh
         self.num_views = num_views
         self.res_layers = () if no_residual else tuple(res_layers)
         for i in range(len(self.dims) - 1):
@@ -36,7 +39,7 @@ class SurfaceClassifier(nn.Module):
 
     def forward(self, feature: torch.Tensor) -> torch.Tensor:
         """feature [B * V, N, C_in] -> occupancy [B, N, C_out] in
-        [0, 1]."""
+        [0, 1] (by default)."""
         y = tmpy = feature
         n_layers = len(self.dims) - 1
         for i in range(n_layers):
@@ -48,4 +51,6 @@ class SurfaceClassifier(nn.Module):
                 V = self.num_views
                 y = y.reshape(-1, V, *y.shape[1:]).mean(1)
                 tmpy = feature.reshape(-1, V, *feature.shape[1:]).mean(1)
-        return torch.sigmoid(y)
+        if self.tanh:
+            return torch.tanh(y)
+        return torch.sigmoid(y) if self.sigmoid else y

@@ -1,6 +1,7 @@
 """ctypes bindings of the port's host mesh library
 (``csrc/mesh_native.cpp``, counterpart of ``surs_tpu/recon/native.py``):
-marching tetrahedra, the OBJ writer and reader.
+marching tetrahedra, the OBJ writer and reader, and the colored OBJ
+writer.
 
 The library is built with the host C++ compiler at first use
 (``ops/cuda_build.py``); a missing compiler or a failed build raises,
@@ -35,6 +36,10 @@ def library() -> ctypes.CDLL:
         lib.surs_write_obj.argtypes = [ctypes.c_char_p, _F64P,
                                        ctypes.c_int64, _I64P,
                                        ctypes.c_int64]
+        lib.surs_write_obj_color.restype = ctypes.c_int
+        lib.surs_write_obj_color.argtypes = [ctypes.c_char_p, _F64P, _F64P,
+                                             ctypes.c_int64, _I64P,
+                                             ctypes.c_int64]
         lib.surs_read_obj.restype = ctypes.c_int
         lib.surs_read_obj.argtypes = [ctypes.c_char_p, _F32P, _I64P, _I64P,
                                       _I64P]
@@ -83,6 +88,25 @@ def write_obj(path: str, verts, faces) -> None:
     faces = np.ascontiguousarray(faces, dtype=np.int64).reshape(-1, 3)
     rc = library().surs_write_obj(
         os.fsencode(path), verts.ctypes.data_as(_F64P), verts.shape[0],
+        faces.ctypes.data_as(_I64P), faces.shape[0])
+    if rc != 0:
+        raise OSError(f"{path}: the OBJ writer failed "
+                      f"({'cannot open' if rc == 1 else 'write error'})")
+
+
+def write_obj_color(path: str, verts, faces, colors) -> None:
+    """verts [V, 3] and colors [V, 3] (written from float64), faces
+    [F, 3] 0-based -> the colored OBJ file at ``path``, each value as
+    ``'%.4f'`` prints it."""
+    verts = np.ascontiguousarray(verts, dtype=np.float64).reshape(-1, 3)
+    colors = np.ascontiguousarray(colors, dtype=np.float64).reshape(-1, 3)
+    faces = np.ascontiguousarray(faces, dtype=np.int64).reshape(-1, 3)
+    if colors.shape[0] != verts.shape[0]:
+        raise ValueError(f"{colors.shape[0]} colors for {verts.shape[0]} "
+                         "vertices")
+    rc = library().surs_write_obj_color(
+        os.fsencode(path), verts.ctypes.data_as(_F64P),
+        colors.ctypes.data_as(_F64P), verts.shape[0],
         faces.ctypes.data_as(_I64P), faces.shape[0])
     if rc != 0:
         raise OSError(f"{path}: the OBJ writer failed "

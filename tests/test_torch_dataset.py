@@ -320,13 +320,21 @@ def test_train_dataset_items_match_jax(dataroot, sample_caches, phase,
 
 
 def test_train_dataset_color_renders_raise(dataroot, tmp_path):
-    _, pcfg = configs(dataroot, num_sample_color=8)
-    TrainDataset(pcfg, yaw_list=YAWS, contains_device="cpu")  # no UV dir
+    """Color samples from UV renders are ported (ROADMAP.md A11;
+    tests/test_torch_uv.py holds the items to the JAX package's): without
+    a UV_RENDER folder an item has no color samples; with one whose files
+    are missing, the item raises, as the JAX package's does."""
+    jcfg, pcfg = configs(dataroot, num_sample_color=8)
+    ds = TrainDataset(pcfg, yaw_list=YAWS, contains_device="cpu")
+    assert "rgbs" not in ds.get_item(0, np.random.default_rng(0))
     uv = os.path.join(dataroot, "UV_RENDER")
     os.makedirs(uv)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-            TrainDataset(pcfg, yaw_list=YAWS, contains_device="cpu")
+        for d in (TrainDataset(pcfg, yaw_list=YAWS, contains_device="cpu"),
+                  JaxTrainDataset(jcfg, yaw_list=YAWS)):
+            assert d.has_uv_renders()
+            with pytest.raises(FileNotFoundError):
+                d.get_item(0, np.random.default_rng(0))
     finally:
         os.rmdir(uv)
 

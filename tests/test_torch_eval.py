@@ -200,9 +200,18 @@ def test_cli_runs_on_cuda_unless_told(tmp_path):
 
 
 def test_cli_with_color_raises_naming_a11(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
+    """The color branch (ROADMAP.md A11) is ported: --with_color no
+    longer raises by itself, and a netC file that is no reference
+    ResBlkPIFuNet raises before any mesh is made, never a random color
+    net (tests/test_torch_color.py holds the branch to the JAX CLI)."""
+    netc = str(tmp_path / "netC")
+    torch.save({"netC.conv0.weight": torch.zeros(3)}, netc)
+    with pytest.raises(KeyError, match="unmappable netC key"):
         main(["--dataroot", str(eval_root(tmp_path)), "--with_color",
-              "--device", "cpu"])
+              "--load_netC_checkpoint_path", netc, "--device", "cpu",
+              "--results_path", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists() or not any(
+        (tmp_path / "out").rglob("*.obj"))
 
 
 # ------------------------------------------------------ reconstruction API ---

@@ -120,10 +120,10 @@ def test_auto_table():
     ("remat_encoder", True), ("with_color", True)])
 def test_unported_values_raise(field, value):
     """Values whose path is not ported raise naming their ROADMAP.md
-    item; remat and remat_encoder are ported (ROADMAP.md A19) and
-    resolve."""
+    item; remat and remat_encoder (ROADMAP.md A19) and with_color (A11)
+    are ported and resolve."""
     cfg = dataclasses.replace(SuRSConfig(), **{field: value})
-    if field in ("remat", "remat_encoder"):
+    if field in ("remat", "remat_encoder", "with_color"):
         assert getattr(resolve_config(cfg, "cpu"), field) is value
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -374,7 +374,16 @@ def test_render_dataset_cli_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag,item", [("--prt", "A14"), ("--uv", "A11")])
 def test_render_dataset_cli_unported_flags_raise(tmp_path, flag, item):
+    """--prt (ROADMAP.md A14) raises; --uv (A11) is ported and writes
+    the UV layout (tests/test_torch_uv.py holds it to the JAX CLI)."""
     write_objs(str(tmp_path / "GEO" / "OBJ"))
+    argv = ["--dataroot", str(tmp_path), "--device", "cpu", "--loadSize",
+            "16", "--yaw_step", "180", flag]
+    if flag == "--uv":
+        render_cli.main(argv + ["--uv_size", "16"])
+        for d in ("UV_MASK/a/00.png", "UV_POS/b/00.exr",
+                  "UV_RENDER/b/180_0_00.jpg", "UV_NORMAL/a/00.png"):
+            assert (tmp_path / d).is_file(), d
+        return
     with pytest.raises(NotImplementedError, match=item):
-        render_cli.main(["--dataroot", str(tmp_path), "--device", "cpu",
-                         "--loadSize", "16", flag])
+        render_cli.main(argv)
