@@ -107,6 +107,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               float32 service loaded from that file and one given the
               same weights through params= give the same fields at
               128^3.
+ 9e'. turntable: the render_turntable app on the eval phase's subject-0
+              HR mesh at 512^3 (the reference-style netG's; kept from
+              the eval phase's clean-up): 36 frames at 256 into a GIF
+              (s a frame, the GIF's bytes), frame 0 rendered on the card
+              against the CPU (masks on 99.9 % of the pixels, RGB within
+              1 LSB where both are set).
  9f. color:   the color branch at full width. The humanoid's HR mesh
               (probes/subject_demo.humanoid_mesh, 129,616 faces) written
               with position-coded vertex colors (save_obj_mesh_with_color),
@@ -219,12 +225,43 @@ Phases, each printing one JSON line; any failure exits non-zero:
               most half the step-0 Chamfer (an empty step-0 mesh counts as
               infinitely far), the masks agree on 99.9 % of the pixels
               and RGB within 1 LSB where both are set.
+ 16b. prt:    PRT shading on train_data's first body (327,680 HR faces,
+              163,848 vertices; the dataset is written when train_data
+              did not run) with compute_prt's defaults (128 directions,
+              96^3): the voxel grid through the winding-number kernel
+              (seconds, launches), 8,192 seeded grid points against the
+              plain winding number (no label mismatch outside the band
+              ||w| - pi| <= WIND_TOL); one 4,096-vertex chunk's
+              visibility on the card against the CPU from the same
+              float32 inputs (at most 1e-3 of the rays differ); the
+              render_dataset CLI with --prt at 512 for 12 yaws, called
+              twice (the _prt.npy cache written, then reused; the
+              winding number's launch count zeroed just before the first
+              call and read just after the second: the voxel grid's,
+              once), compute_prt on the whole mesh timed inside the
+              first call (seconds, steps, peak memory); one PRT view on
+              the card against the CPU (as the accuracy phase's views).
+ 16c. compute_points: the compute_points app on that dataset at 6,000
+              points, sigma 5.0: its lines, flip counts and seconds, the
+              winding number's launch count zeroed just before and read
+              just after (2 a subject).
+ 16d. profile: train() at the train phase's configuration for 3 steps
+              with profile_dir, and one 512^3 mono
+              SuRSService.reconstruct inside utils/profiling.Profiler with
+              encode / evaluate / extract / write annotated: each
+              trace's bytes, events, device events, K1 / K2 launches (the
+              wrappers' counts zeroed just before and read just after,
+              and the kernels in the trace) and the card's busy share of
+              the traced window (the union of kernel, copy and set
+              intervals over the span from the first event to the
+              last).
 
 ``--phases`` runs a subset (for debugging; the result line then says
 which ran). Two phases run only when named: ``train_profile`` (a
 torch.profiler breakdown of 3 fused steps) and ``serve_profile`` (one
 mono octree evaluation at 512^3 timed 4 times and profiled once: device
-time by kernel, device operations, K1's device time, busy share). Then a
+time by kernel, device operations, K1's device time, busy share). Then a line
+saying that the orbax reader (compat/orbax_import.py) is not run here, a
 ``{"kernels": [...]}`` line (K1-K5), a ``{"port_kernels": [...]}`` line
 (the winding number, which replaces no Pallas kernel), the card's name
 and power limit as nvidia-smi reports them, and last
@@ -1444,11 +1481,13 @@ def reference_state_dict(seed: int = SEED, scale: float = 0.05):
         for k, shape in spec.items()}
 
 
-def phase_eval(out_dir: str):
+def phase_eval(out_dir: str, keep_obj=None):
     """The eval CLI (surs_tpu_torch.apps.eval_surs.main) at full width
     and 512^3 on a folder of two PNG pairs, PIL hidden, loading a
     reference-style checkpoint; then a float32 service loaded from that
-    file against one given the same weights through params=."""
+    file against one given the same weights through params=. With
+    ``keep_obj`` subject 0's HR mesh is moved there before the phase's
+    OBJ files are dropped."""
     import contextlib
     import io
 
@@ -1510,6 +1549,9 @@ def phase_eval(out_dir: str):
     m = re.search(r"imported (\d+) tensors from torch checkpoint", text)
     imported = int(m.group(1)) if m else 0
     saved_lines = text.count("\nsaved ")
+    if keep_obj is not None:
+        os.replace(os.path.join(out_dir, "eval", "subject0_HR.obj"),
+                   keep_obj)
     clear_objs(os.path.join(out_dir, "eval"))
     torch.cuda.empty_cache()
     # float32 at full width, 128^3: loaded from the file against the same
@@ -2719,7 +2761,7 @@ ACC_RGB_LSB = 1
 
 
 def check_renders(verts, faces, load_size: int, yaws,
-                  device: str = "cuda") -> dict:
+                  device: str = "cuda", prt=None) -> dict:
     """The renderer on the card against the same renderer on the CPU, view
     by view: the share of pixels whose masks agree, and the largest RGB
     difference where both masks are set; the card's and the CPU's
@@ -2735,7 +2777,7 @@ def check_renders(verts, faces, load_size: int, yaws,
         t0 = time.perf_counter()
         views[dev] = list(render_views(verts, faces, load_size, yaws,
                                        device=device if dev == "card"
-                                       else "cpu"))
+                                       else "cpu", prt=prt))
         torch.cuda.synchronize()
         secs[dev] = (time.perf_counter() - t0) / len(yaws)
     for (_, rgb_c, m_c, p_c), (_, rgb_h, m_h, p_h) in zip(views["card"],
@@ -3100,10 +3142,392 @@ def phase_color(out_dir: str, device: str = "cuda"):
     return rec
 
 
+# ------------------------------------- PRT, turntable, compute_points --
+PRT_SUBJECT = "body0"            # train_data's first body: 327,680 faces
+PRT_DIRS, PRT_GRID = 128, 96     # compute_prt's and render_dataset's defaults
+PRT_YAW_STEP = 30                # 12 views at 512
+PRT_CHECK_POINTS = 8_192         # voxel centres held to the plain version
+PRT_CHUNK = 4_096                # compute_prt's vertex chunk
+# visibility of one chunk, card against CPU from the same float32 inputs
+# (tests/test_torch_prt.py's share against the JAX package's)
+PRT_VIS_SHARE = 1e-3
+TURNTABLE_FRAMES, TURNTABLE_RES = 36, 256
+COMPUTE_POINTS = 6_000
+
+
+def prt_dataroot(out_dir: str, dataroot) -> str:
+    """The on-disk dataset of train_data (written here when that phase
+    did not run)."""
+    if dataroot is None:
+        dataroot = os.path.join(out_dir, "prt_data")
+        write_train_dataset(dataroot)
+    return dataroot
+
+
+def phase_prt(out_dir: str, dataroot: str, device: str = "cuda"):
+    """PRT shading on one training body (327,680 HR faces, 163,848
+    vertices) with compute_prt's defaults (128 directions, a 96^3 grid):
+    the voxel grid through the winding-number kernel, 8,192 of its points
+    held to the plain version; the visibility of one 4,096-vertex chunk,
+    card against CPU; the render_dataset CLI with --prt at 512, 12
+    yaws, twice (the _prt.npy cache written, then reused), compute_prt
+    on the whole mesh timed inside the first call (seconds, steps, peak
+    memory); one PRT view, card against CPU. The winding number's launch count is zeroed before the
+    CLI's first call and read after its second."""
+    import torch
+    from surs_tpu_torch.apps import render_dataset as render_cli
+    from surs_tpu_torch.ops.containment import (THRESHOLD, winding_number,
+                                                winding_number_ref)
+    from surs_tpu_torch.recon.mesh_io import load_obj, save_obj_mesh
+    from surs_tpu_torch.render import dataset_gen, prt
+    from surs_tpu_torch.render.shading import vertex_normals
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    src = os.path.join(dataroot, "GEO", "OBJ", f"{PRT_SUBJECT}_HR.obj")
+    root = os.path.join(out_dir, "prt")
+    obj_dir = os.path.join(root, "GEO", "OBJ")
+    os.makedirs(obj_dir)
+    # the dataset's OBJ carries the writer's swapped winding (its faces
+    # wind inward, which containment ignores); written once more through
+    # the writer it winds outward, as a scan does, so the vertex normals
+    # and PRT's rays point out of the body
+    dst = os.path.join(obj_dir, f"{PRT_SUBJECT}_HR.obj")
+    save_obj_mesh(dst, *load_obj(src))
+    verts, faces = load_obj(dst)
+    tri = verts[faces].astype(np.float64)
+    volume = float(np.einsum("ij,ij->i", tri[:, 0], np.cross(
+        tri[:, 1], tri[:, 2])).sum() / 6.0)
+    rec = {"phase": "prt", "vertices": len(verts), "faces": len(faces),
+           "signed_volume": volume, "n_dirs": PRT_DIRS, "grid": PRT_GRID}
+    # the voxel grid, and 8,192 of its centres against the plain version
+    torch.cuda.synchronize()
+    winding_number.launches = 0
+    t0 = time.perf_counter()
+    occ, b_min, cell = prt.voxelize_occupancy(verts, faces, grid=PRT_GRID,
+                                              device=dev)
+    torch.cuda.synchronize()
+    rec["voxelize_s"] = time.perf_counter() - t0
+    rec["voxelize_launches"] = winding_number.launches
+    pts, _, _ = prt.grid_points(verts, PRT_GRID)
+    idx = np.random.default_rng(SEED).choice(len(pts), PRT_CHECK_POINTS,
+                                             replace=False)
+    tris = torch.from_numpy(np.ascontiguousarray(verts[faces])).to(dev)
+    wp = winding_number_ref(torch.from_numpy(pts[idx]).to(dev), tris)
+    band = ((wp.abs() - THRESHOLD).abs() <= WIND_TOL).cpu().numpy()
+    plain = (wp.abs() > THRESHOLD).cpu().numpy()
+    got = occ.reshape(-1)[torch.from_numpy(idx).to(dev)].cpu().numpy()
+    rec["voxel_check"] = {"points": PRT_CHECK_POINTS,
+                          "inside": int(plain.sum()),
+                          "near_cut": int(band.sum()),
+                          "label_mismatches": int(((got != plain)
+                                                   & ~band).sum())}
+    del tris, wp
+    # one chunk's visibility, card against CPU, the same float32 inputs
+    v_t = torch.from_numpy(verts).to(dev)
+    n = vertex_normals(v_t, torch.from_numpy(faces).to(dev))[:PRT_CHUNK]
+    t0f, t1f, n_steps = prt.march_plan(verts, cell, 2.0, None)
+    orig = (v_t[:PRT_CHUNK] + t0f * n).cpu()
+    dirs = torch.from_numpy(prt.fibonacci_sphere(PRT_DIRS))
+    b_min_t = torch.from_numpy(b_min.astype(np.float32))
+    inv_cell = torch.from_numpy((1.0 / cell).astype(np.float32))
+    t0 = time.perf_counter()
+    vis_card = prt.visibility(orig.to(dev), dirs.to(dev), occ,
+                              b_min_t.to(dev), inv_cell.to(dev), t0f, t1f,
+                              n_steps).cpu()
+    rec["visibility_chunk_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vis_cpu = prt.visibility(orig, dirs, occ.cpu(), b_min_t, inv_cell,
+                             t0f, t1f, n_steps)
+    rec["visibility_chunk_cpu_s"] = time.perf_counter() - t0
+    rec["visibility_check"] = {
+        "rays": vis_cpu.numel(), "occluded_share":
+            float((~vis_cpu).float().mean()),
+        "differ_share": float((vis_card != vis_cpu).float().mean())}
+    rec["n_steps"] = n_steps
+    del occ, v_t, n
+    # the CLI twice: the cache written, then reused; compute_prt on the
+    # whole mesh timed inside the first call (seconds, peak memory)
+    argv = ["--dataroot", root, "--loadSize", "512", "--yaw_step",
+            str(PRT_YAW_STEP), "--subjects", PRT_SUBJECT, "--prt",
+            "--device", device]
+    cache = os.path.join(obj_dir, f"{PRT_SUBJECT}_prt.npy")
+    real_compute, timed = dataset_gen.compute_prt, []
+
+    def compute_prt(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real_compute(*a, **kw)
+        torch.cuda.synchronize()
+        timed.append((time.perf_counter() - t0,
+                      torch.cuda.max_memory_allocated() / 1e9))
+        return out
+
+    dataset_gen.compute_prt = compute_prt
+    try:
+        torch.cuda.synchronize()
+        winding_number.launches = 0      # the --prt path starts here
+        calls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            render_cli.main(argv)
+            torch.cuda.synchronize()
+            calls.append({"seconds": time.perf_counter() - t0,
+                          "cache_mtime_ns": os.stat(cache).st_mtime_ns})
+        launches = winding_number.launches   # the --prt path ends here
+    finally:
+        dataset_gen.compute_prt = real_compute
+    (rec["compute_prt_s"], rec["compute_prt_peak_gb"]), = timed
+    cached = np.load(cache)
+    renders = sorted(os.listdir(os.path.join(root, "RENDER", PRT_SUBJECT)))
+    rec["transfer_finite"] = bool(np.isfinite(cached).all())
+    rec["cli"] = {"calls_s": [c["seconds"] for c in calls],
+                  "cache_reused": calls[0]["cache_mtime_ns"]
+                  == calls[1]["cache_mtime_ns"],
+                  "compute_prt_calls": len(timed),
+                  "winding_launches": launches, "renders": len(renders),
+                  "cache_shape": list(cached.shape)}
+    # one PRT view, card against CPU
+    rec["view_check"] = check_renders(verts, faces, 512, [0], prt=cached,
+                                      device=device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    vc, cli = rec["view_check"], rec["cli"]
+    if not (volume > 0 and rec["voxel_check"]["label_mismatches"] == 0
+            and rec["voxel_check"]["inside"] > 0
+            and rec["visibility_check"]["differ_share"] <= PRT_VIS_SHARE
+            and 0 < rec["visibility_check"]["occluded_share"] < 1
+            and rec["transfer_finite"] and cli["cache_reused"]
+            and cli["renders"] == 360 // PRT_YAW_STEP
+            and launches == rec["voxelize_launches"] > 0
+            and cached.shape == (len(verts), 9)
+            and vc["mask_agree"] >= ACC_MASK_SHARE
+            and vc["rgb_max_lsb"] <= ACC_RGB_LSB
+            and vc["min_mask_pixels"] > 0):
+        raise AssertionError(f"prt failed: {rec}")
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_turntable(obj_path: str, device: str = "cuda"):
+    """The render_turntable app on a served 512^3 HR mesh: 36 frames at
+    256 into a GIF (s a frame, the GIF's bytes), then frame 0 rendered on
+    the card against the CPU."""
+    import torch
+    from PIL import Image
+    from surs_tpu_torch.apps import render_turntable
+    from surs_tpu_torch.recon.mesh_io import load_obj
+
+    t_phase = time.perf_counter()
+    gif = os.path.splitext(obj_path)[0] + ".gif"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_turntable.main([obj_path, gif, "--frames",
+                           str(TURNTABLE_FRAMES), "--res",
+                           str(TURNTABLE_RES), "--device", device])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with Image.open(gif) as im:
+        n_frames, size = im.n_frames, im.size
+    verts, faces = load_obj(obj_path)
+    rec = {"phase": "turntable", "mesh": os.path.basename(obj_path),
+           "faces": len(faces), "frames": n_frames, "res": TURNTABLE_RES,
+           "seconds": seconds, "s_per_frame": seconds / TURNTABLE_FRAMES,
+           "gif_bytes": os.path.getsize(gif),
+           "frame_check": check_renders(verts, faces, TURNTABLE_RES, [0.0],
+                                        device=device)}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    fc = rec["frame_check"]
+    if not (n_frames == TURNTABLE_FRAMES
+            and size == (TURNTABLE_RES, TURNTABLE_RES)
+            and fc["mask_agree"] >= ACC_MASK_SHARE
+            and fc["rgb_max_lsb"] <= ACC_RGB_LSB
+            and fc["min_mask_pixels"] > 0):
+        raise AssertionError(f"turntable failed: {rec}")
+    os.remove(gif)
+    return rec
+
+
+def phase_compute_points(dataroot: str, device: str = "cuda"):
+    """The compute_points app on the on-disk dataset (2 bodies, 327,680
+    HR / 20,480 LR faces) at 6,000 points and train_data's sigma; the
+    winding number's launch count zeroed just before and read just
+    after (2 a subject)."""
+    import contextlib
+    import io
+
+    import torch
+    from surs_tpu_torch.apps import compute_points
+    from surs_tpu_torch.ops.containment import winding_number
+
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    winding_number.launches = 0          # the app's path starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        counts = compute_points.main(
+            ["--dataroot", dataroot, "--num_sample_inout",
+             str(COMPUTE_POINTS), "--sigma", "5.0", "--device", device])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = winding_number.launches   # the app's path ends here
+    lines = log.getvalue().splitlines()
+    rec = {"phase": "compute_points", "seconds": seconds,
+           "winding_launches": launches, "lines": lines,
+           "flips": {k: list(v) for k, v in counts.items()}}
+    emit(rec)
+    if not (len(counts) == len(DATA_STRETCH)
+            and launches == 2 * len(counts)
+            and all(n == COMPUTE_POINTS and 0 < a + b < n
+                    for a, b, n in counts.values())
+            and lines[-1].startswith("TOTAL: ")):
+        raise AssertionError(f"compute_points failed: {rec}")
+    return rec
+
+
+# ----------------------------------------------------------- profile --
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_summary(path: str, kernel_keys: dict) -> dict:
+    """A Chrome trace of utils/profiling.Profiler: its bytes, events,
+    device events (kernels, copies, sets), the launches of the kernels
+    whose names hold each of ``kernel_keys``' values, and the card's busy
+    share of the traced window: the union of the device events'
+    intervals over the span from the first event to the last."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                 for e in events if e.get("cat") in DEVICE_CATS)
+    busy, end = 0.0, -np.inf
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    start = min(float(e["ts"]) for e in events)
+    stop = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    regions = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            regions[e["name"]] = regions.get(e["name"], 0.0) \
+                + float(e.get("dur", 0)) / 1e3
+    launches = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                       and key in e.get("name", ""))
+                for k, key in kernel_keys.items()}
+    return {"bytes": os.path.getsize(path), "events": len(events),
+            "device_events": len(dev), "kernel_launches": launches,
+            "window_ms": (stop - start) / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / (stop - start),
+            "device_span_busy_share": (busy / (dev[-1][1] - dev[0][0])
+                                       if dev else 0.0),
+                        "regions_ms": regions}
+
+
+def phase_profile(out_dir: str, device: str = "cuda"):
+    """train(cfg, max_iters=3) at the train phase's configuration with
+    profile_dir set, and one 512^3 mono SuRSService.reconstruct inside a
+    Profiler with its stages annotated (encode, evaluate, extract,
+    write); for each trace its size, device events, K1 / K2 launches
+    (wrapper counts zeroed just before and read just after, and kernels
+    in the trace) and the card's busy share of the traced window."""
+    import dataclasses
+
+    import torch
+    from surs_tpu_torch.data.loader import DataLoader
+    from surs_tpu_torch.ops.fused_mlp import (fused_dual_mlp,
+                                              fused_dual_mlp_train)
+    from surs_tpu_torch.recon import pipeline
+    from surs_tpu_torch.serve import SuRSService
+    from surs_tpu_torch.train.loop import train
+    from surs_tpu_torch.utils.profiling import Profiler, annotate
+
+    t_phase = time.perf_counter()
+    keys = {"k1": "fused_dual_mlp_wgmma_kernel",
+            "k2": "fused_dual_mlp_train"}
+    root = os.path.join(out_dir, "profile")
+    cfg = dataclasses.replace(train_config(root),
+                              profile_dir=os.path.join(root, "train_trace"))
+    items = train_items(cfg)
+    loader = DataLoader(RepeatedItems(items, 3), batch_size=TRAIN_BATCH,
+                        shuffle=False)
+    torch.cuda.synchronize()
+    fused_dual_mlp_train.launches = 0    # the traced steps start here
+    out = train(cfg, loader, max_iters=3, device=device)
+    torch.cuda.synchronize()
+    k2 = fused_dual_mlp_train.launches   # and end here
+    (trace,) = os.listdir(cfg.profile_dir)
+    step = trace_summary(os.path.join(cfg.profile_dir, trace), keys)
+    step.update(steps=out["iters"], k2_wrapper_launches=k2,
+                wall_s=out["wall_sec"])
+    # one request, its stages annotated
+    service = SuRSService(full_width_config(), device=device)
+    service.warmup((256, 256))
+    rec_, write = service.rec, pipeline.save_obj_mesh
+    encode, evaluate, extract = rec_.encode, rec_.evaluate, \
+        rec_.extract_pair
+
+    def annotated(name, fn):
+        def call(*a, **kw):
+            with annotate(name):
+                return fn(*a, **kw)
+        return call
+
+    def extract_pair(*a, **kw):
+        gen = extract(*a, **kw)
+        while True:
+            with annotate("extract"):
+                item = next(gen, None)
+            if item is None:
+                return
+            yield item
+
+    rec_.encode = annotated("encode", encode)
+    rec_.evaluate = annotated("evaluate", evaluate)
+    rec_.extract_pair = extract_pair
+    pipeline.save_obj_mesh = annotated("write", write)
+    img, mask = synthetic_subject(0)
+    prof = Profiler(os.path.join(root, "request_trace"))
+    try:
+        torch.cuda.synchronize()
+        fused_dual_mlp.launches = 0      # the traced request starts here
+        t0 = time.perf_counter()
+        with prof:
+            service.reconstruct(img, mask, "profiled", root)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1 = fused_dual_mlp.launches     # and ends here
+    finally:
+        pipeline.save_obj_mesh = write
+        del rec_.encode, rec_.evaluate, rec_.extract_pair
+    request = trace_summary(prof.last_trace, keys)
+    request.update(seconds_with_trace_export=seconds,
+                   k1_wrapper_launches=k1)
+    del service
+    torch.cuda.empty_cache()
+    rec = {"phase": "profile", "train": step, "request": request,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not (step["steps"] == 3 and k2 == 3 * cfg.num_stack_lr
+            and step["kernel_launches"]["k2"] > 0
+            and request["kernel_launches"]["k1"] > 0 and k1 > 0
+            and 0 < step["busy_share"] <= 1
+            and 0 < request["busy_share"] <= 1
+            and set(request["regions_ms"]) >= {"encode", "evaluate",
+                                               "extract", "write"}):
+        raise AssertionError(f"profile failed: {rec}")
+    shutil.rmtree(root)
+    return rec
+
+
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "containment", "serve",
-          "check", "stages", "native_io", "tets", "cli", "eval", "color",
-          "dense", "runs", "train", "train_check", "configs", "train_data",
-          "precompute", "accuracy")
+          "check", "stages", "native_io", "tets", "cli", "eval", "turntable",
+          "color", "dense", "runs", "train", "train_check", "configs",
+          "train_data", "precompute", "prt", "compute_points", "profile",
+          "accuracy")
 # run only when named in --phases
 EXTRA_PHASES = ("train_profile", "serve_profile")
 
@@ -3155,8 +3579,13 @@ def main() -> int:
             torch.cuda.empty_cache()
         if "cli" in phases:
             phase_cli(out_dir)
-        if "eval" in phases:
-            phase_eval(out_dir)
+        if "eval" in phases or "turntable" in phases:
+            kept = os.path.join(out_dir, "turntable_HR.obj")
+            phase_eval(out_dir, keep_obj=kept if "turntable" in phases
+                       else None)
+            if "turntable" in phases:
+                phase_turntable(kept)
+                os.remove(kept)
         if "color" in phases:
             phase_color(out_dir)
             torch.cuda.empty_cache()
@@ -3177,12 +3606,26 @@ def main() -> int:
         if "configs" in phases:
             phase_configs(out_dir)
             torch.cuda.empty_cache()
+        dataroot = None
         if "train_data" in phases or "precompute" in phases:
             dataroot, argv, fed = phase_train_data(out_dir)
             if "precompute" in phases:
                 phase_precompute(out_dir, dataroot, argv, fed)
+        if "prt" in phases or "compute_points" in phases:
+            dataroot = prt_dataroot(out_dir, dataroot)
+            if "prt" in phases:
+                phase_prt(out_dir, dataroot)
+            if "compute_points" in phases:
+                phase_compute_points(dataroot)
+        if "profile" in phases:
+            phase_profile(out_dir)
         if "accuracy" in phases:
             phase_accuracy(out_dir)
+    emit({"orbax_import": "not run on the card: reading the JAX package's "
+                          "orbax train states needs tensorstore and a "
+                          "directory that JAX wrote, and this machine has "
+                          "neither; tests/test_torch_orbax.py holds the "
+                          "reader to JAX's CheckpointManager on the CPU"})
     if set(phases) != set(PHASES):
         print_card()
         emit({"partial": phases})

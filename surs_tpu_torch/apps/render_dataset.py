@@ -9,7 +9,9 @@ Every ``<dataroot>/GEO/OBJ/<subject>_HR.obj`` is rendered by the port's
 rasterizer on CUDA (``--device cpu`` to opt out; raises without a GPU).
 ``--uv`` also writes the color branch's UV-space renders (UV_RENDER /
 UV_MASK / UV_POS / UV_NORMAL, ``render/uv.py``) at ``--uv_size``.
-``--prt`` (PRT shading, ROADMAP.md A14) is not ported and raises.
+``--prt`` shades with per-vertex shadowed radiance transfer
+(``render/prt.py``), computed on the same device and cached beside each
+OBJ as ``<subject>_prt.npy``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rasterizer per-face patch (px)")
     ap.add_argument("--subjects", nargs="*", default=None)
     ap.add_argument("--prt", action="store_true",
-                    help="PRT shading: not ported (ROADMAP.md A14)")
+                    help="shade with per-vertex precomputed radiance "
+                         "transfer (the reference renderer's lighting "
+                         "model) instead of analytic SH")
     ap.add_argument("--uv", action="store_true",
                     help="also render the UV-space color-supervision "
                          "layout (UV_RENDER/UV_MASK/UV_POS/UV_NORMAL)")

@@ -25,8 +25,9 @@ bn4, and a bn4 without its downsample conv.
 ``load_netG`` loads ``cfg.load_netG_checkpoint_path`` into a model: a
 port ``netG_*`` file strictly, a reference state dict as the JAX
 package does (non-strict, a count printed), the running statistics of
-a batch-norm model with it. The JAX package's orbax directories
-(ROADMAP.md A17) are not read.
+a batch-norm model with it, or a JAX train-state directory (orbax, read
+by ``orbax_import``) strictly, its ``netG_latest`` / ``netG_epoch_N``
+tag choosing the directory as the JAX package's does.
 
 ``import_torch_color_state_dict`` loads a reference ResBlkPIFuNet
 state dict (netC) into the port's ``models/pifu_legacy.RefColorNet``,
@@ -238,17 +239,17 @@ def load_netG(cfg, model: nn.Module) -> int:
     (``surs_tpu/compat/torch_import.py:load_params``); returns the count
     of tensors loaded. A port ``netG_*`` file loads strictly, the model
     alone; a reference state dict non-strictly, with the count printed;
-    without a path the model keeps its random weights from ``cfg.seed``.
-    An orbax train-state directory raises."""
+    a JAX train-state directory (orbax) strictly, its params and batch
+    statistics: ``netG_epoch_N`` itself, any other directory name the
+    ``netG_latest`` beside it; without a path the model keeps its random
+    weights from ``cfg.seed``."""
     path = cfg.load_netG_checkpoint_path
     if not path:
         print("WARNING: no checkpoint given — using random init")
         return 0
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: the JAX package's orbax train-state directories are "
-            "not read yet (ROADMAP.md A17); load a port netG_* file or a "
-            "reference state dict")
+        from .orbax_import import load_model, resolve_tag
+        return load_model(resolve_tag(path), model)
     state, blob = load_model_state(path)
     if blob is not None:
         model.load_state_dict(state, strict=True)

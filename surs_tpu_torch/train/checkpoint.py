@@ -7,13 +7,18 @@ reference's names:
 ``{checkpoints_path}/{name}/netG_epoch_{N}`` and ``netG_latest``. The
 full train state is saved, so a resume is exact. ``load_model_state``
 reads such a file, or a reference ``torch.save(netG.state_dict())``
-file, for the trainer's resume and the service's ``load_netG``. Reading
-the JAX package's orbax directories is not ported (ROADMAP.md A17).
+file, for the trainer's resume and the service's ``load_netG``. Where a
+``netG_*`` path is a directory, it is the JAX package's orbax train
+state, and ``restore`` reads it through ``compat/orbax_import.py``: a
+training run started in JAX goes on from the same weights, moments,
+learning rate and step. ``save`` replaces such a directory with the
+port's file, as the JAX package overwrites its checkpoints.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 from collections.abc import Mapping
 from typing import Optional, Tuple
 
@@ -53,15 +58,21 @@ class CheckpointManager:
         for path in targets:
             tmp = f"{path}.{os.getpid()}.tmp"
             torch.save(blob, tmp)
+            if os.path.isdir(path):          # a JAX train state's
+                shutil.rmtree(path)
             os.replace(tmp, path)
 
     def restore(self, state: TrainState, epoch: Optional[int] = None
                 ) -> TrainState:
         """Load into ``state``'s model and optimizer in place;
         epoch=None reads netG_latest (the reference's resume_epoch < 0
-        convention)."""
-        device = next(state.model.parameters()).device
+        convention). A directory there is a JAX train state (orbax)."""
         path = self.path(epoch)
+        if os.path.isdir(path):
+            from ..compat.orbax_import import restore_train_state
+            restore_train_state(path, state)
+            return state
+        device = next(state.model.parameters()).device
         model_state, blob = load_model_state(path, device)
         if blob is None:
             raise ValueError(f"{path}: a bare state dict, not a train state")
@@ -71,4 +82,4 @@ class CheckpointManager:
         return state
 
     def exists(self, epoch: Optional[int] = None) -> bool:
-        return os.path.isfile(self.path(epoch))
+        return os.path.exists(self.path(epoch))

@@ -23,6 +23,9 @@ collated batches in the training dataset's item format (``img_LR``
 ``labels_HR`` [B, 1, N]); the epoch meshes then need ``gen_items`` or
 ``no_gen_mesh``.
 
+``cfg.profile_dir`` records a ``torch.profiler`` trace
+(``utils/profiling.Profiler``) from the epochs' start to the return.
+
 ``--fused_train`` on CUDA takes the fused step (kernel K2) unless the
 model has batch norms or more than one view, as in the JAX package; every
 other case, the CPU included, takes the plain step. The JAX package's packed
@@ -46,6 +49,7 @@ from ..models.surs_net import surs_net_from_config
 from ..ops.fused_mlp import prepare_fused_weights
 from ..recon.mesh_io import save_samples_truncted_prob
 from ..recon.pipeline import Reconstructor
+from ..utils.profiling import Profiler
 from .checkpoint import CheckpointManager
 from .optim import lr_for_epoch, make_optimizer, set_learning_rate
 from .step import create_train_state, make_train_step
@@ -166,9 +170,6 @@ def train(cfg: SuRSConfig, loader=None, max_iters: Optional[int] = None,
     t_train0 = time.time()
     device = resolve_device(device)
     cfg = resolve_config(cfg, device)
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "profile_dir is not ported yet (ROADMAP.md A14 utilities)")
     if loader is not None:
         if not cfg.no_gen_mesh and gen_items is None:
             raise ValueError("per-epoch meshes from a given loader need "
@@ -222,6 +223,10 @@ def _run(cfg, loader, max_iters, device, gen_items, on_step, datasets,
 
     results = os.path.join(cfg.results_path, cfg.name)
     os.makedirs(results, exist_ok=True)
+    # a torch.profiler trace of the epochs into cfg.profile_dir, started
+    # and stopped where the JAX loop's is
+    profiler = Profiler(cfg.profile_dir)
+    profiler.start()
 
     def summary():
         return {"iters": iters_done, "wall_sec": time.time() - t_train0,
@@ -301,6 +306,7 @@ def _run(cfg, loader, max_iters, device, gen_items, on_step, datasets,
                 t_s = time.time()
                 ckpt.save(state, epoch)
                 save_sec += time.time() - t_s
+                profiler.stop()
                 return summary()
         t_s = time.time()
         ckpt.save(state, epoch)
@@ -309,4 +315,5 @@ def _run(cfg, loader, max_iters, device, gen_items, on_step, datasets,
             items = gen_items if gen_items is not None else \
                 _dataset_gen_items(cfg, *datasets)
             _gen_meshes(cfg, state.model, device, items, epoch)
+    profiler.stop()
     return summary()

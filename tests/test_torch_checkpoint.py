@@ -229,9 +229,12 @@ def test_params_and_checkpoint_together_raise(ref_file):
 
 
 def test_orbax_directory_raises_naming_a17(tmp_path):
+    """The JAX package's orbax directories are read now
+    (tests/test_torch_orbax.py); an empty one raises an error that names
+    the metadata file it lacks."""
     d = tmp_path / "netG_latest"
     d.mkdir()
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
         SuRSService(SuRSConfig(load_netG_checkpoint_path=str(d), **TINY),
                     device="cpu")
 

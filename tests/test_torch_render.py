@@ -34,6 +34,7 @@ from surs_tpu.recon.mesh_io import save_obj_mesh as jax_save_obj
 from surs_tpu.utils import synth as jax_synth
 from surs_tpu_torch.apps import render_dataset as render_cli
 from surs_tpu_torch.probes.subject_demo import humanoid_mesh
+from surs_tpu_torch.recon.mesh_io import load_obj
 from surs_tpu_torch.render import (camera, dataset_gen, rasterizer,
                                    shading)
 from surs_tpu_torch.utils import synth
@@ -286,13 +287,20 @@ def test_render_views_match_jax():
 
 
 def test_render_views_prt_raises():
+    """PRT shading is ported (render/prt.py) and no longer raises:
+    render_views(prt=) gives the JAX package's view of the cube, masks
+    and RGB under the views' rule (tests/test_torch_prt.py holds the
+    rest of the PRT path)."""
     v, f = cube()
-    with pytest.raises(NotImplementedError, match="A14"):
-        next(dataset_gen.render_views(v, f, 16, [0], device="cpu",
-                                      prt=np.zeros((8, 9), np.float32)))
-    with pytest.raises(NotImplementedError, match="A14"):
-        dataset_gen.render_dataset("unused", "unused", use_prt=True,
-                                   device="cpu")
+    t = np.random.default_rng(5).uniform(0.0, 1.0, (8, 9)).astype(
+        np.float32)
+    _, grgb, gm, _ = next(dataset_gen.render_views(v, f, 16, [30],
+                                                   device="cpu", prt=t))
+    _, wrgb, wm, _ = next(jax_dataset_gen.render_views(v, f, 16, [30],
+                                                       prt=t))
+    assert gm.any() and (gm != wm).mean() <= 1 - RGB_SHARE
+    close = (np.abs(grgb.astype(int) - wrgb.astype(int)) <= 1).all(-1)
+    assert close.mean() >= RGB_SHARE
 
 
 def test_render_views_need_a_device(monkeypatch):
@@ -374,8 +382,12 @@ def test_render_dataset_cli_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag,item", [("--prt", "A14"), ("--uv", "A11")])
 def test_render_dataset_cli_unported_flags_raise(tmp_path, flag, item):
-    """--prt (ROADMAP.md A14) raises; --uv (A11) is ported and writes
-    the UV layout (tests/test_torch_uv.py holds it to the JAX CLI)."""
+    """Both flags are ported and write their layouts: --prt (A14) the
+    PRT-shaded RENDER / MASK / PARAM views from each subject's
+    ``_prt.npy`` cache (seeded here with the meshes' vertex count, so
+    the CLI reuses it; tests/test_torch_prt.py holds the views and a
+    computed cache to the JAX CLI's), --uv (A11) the UV layout
+    (tests/test_torch_uv.py holds it to the JAX CLI)."""
     write_objs(str(tmp_path / "GEO" / "OBJ"))
     argv = ["--dataroot", str(tmp_path), "--device", "cpu", "--loadSize",
             "16", "--yaw_step", "180", flag]
@@ -385,5 +397,18 @@ def test_render_dataset_cli_unported_flags_raise(tmp_path, flag, item):
                   "UV_RENDER/b/180_0_00.jpg", "UV_NORMAL/a/00.png"):
             assert (tmp_path / d).is_file(), d
         return
-    with pytest.raises(NotImplementedError, match=item):
-        render_cli.main(argv)
+    caches = {}
+    for s in ("a", "b"):
+        n = len(load_obj(str(tmp_path / "GEO" / "OBJ" / f"{s}_HR.obj"))[0])
+        caches[s] = np.random.default_rng(ord(s)).uniform(
+            0.2, 1.0, (n, 9)).astype(np.float32)
+        np.save(str(tmp_path / "GEO" / "OBJ" / f"{s}_prt.npy"), caches[s])
+    render_cli.main(argv)
+    for s in ("a", "b"):
+        for d in (f"RENDER/{s}/0_0_00.jpg", f"MASK/{s}/180_0_00.png",
+                  f"PARAM/{s}/180_0_00.npy"):
+            assert (tmp_path / d).is_file(), d
+        np.testing.assert_array_equal(
+            np.load(str(tmp_path / "GEO" / "OBJ" / f"{s}_prt.npy")),
+            caches[s])
+    assert np.asarray(Image.open(tmp_path / "MASK/a/0_0_00.png")).any()
