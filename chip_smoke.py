@@ -201,7 +201,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               from the cache (no containment launch), their wait for
               data beside train_data's.
  17. accuracy: the accuracy loop of surs_tpu_torch/probes/subject_demo.py
-              with 800 steps (1,500 there): the capsule humanoid (HR
+              with 1,000 steps (1,500 there): the capsule humanoid (HR
               detail 0.012, smooth LR) meshed by marching tetrahedra at
               160^3, 12 yaws rendered at 512 on the card, a 16-draw sample
               cache
@@ -255,6 +255,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
               the traced window (the union of kernel, copy and set
               intervals over the span from the first event to the
               last).
+ 16e. parallel: the multi-device paths (surs_tpu_torch/parallel/) at
+              full width. (a) NCCL at world size 1 in this process: the
+              dense subject through K3 into the sharded extraction
+              (cubes), as quantised sets against eval_grid_dense_cols and
+              the card's cubes, at 128^3, the largest grid whose one
+              slab's crossing points pass the JAX package's 21-bit face
+              format; the point-sharded mono octree at 512^3 through K1 (bit for bit
+              against the unsharded one); ShardedReconstructor on the
+              subject at 256^3 (K1, host tets); the data-parallel fused
+              step (K2, float32 trunk, SGD) against the single-device
+              fused step (losses within 1e-4, the update within 1e-3,
+              relative); the eval CLI with --mc_backend sharded at
+              256^3. (b) Two ranks sharing the card: over NCCL first
+              (its refusal printed), then over gloo: the dense subject
+              at 256^3 with the extraction, the point octree at 256^3
+              and the step at batch 2, a row a rank, each against the
+              single-device result on rank 0 and rank 1. Each part's
+              kernel launches zeroed just before it and read just after
+              (> 0), its seconds and peak memory, beside the card's name
+              and power limit.
 
 ``--phases`` runs a subset (for debugging; the result line then says
 which ran). Two phases run only when named: ``train_profile`` (a
@@ -2746,9 +2766,10 @@ def phase_precompute(out_dir: str, dataroot: str, argv: list, fed: dict):
 
 
 # the accuracy phase: a reduced run of probes/subject_demo.py (1,500
-# steps there); 1,000 full-width fused steps took 254 s on an H100, so
-# the phase runs 800 to keep the script's time with the tets phase added
-ACC_ITERS = 800
+# steps there). 1,000 steps: four proof runs at 700-800 read a Chamfer of
+# 0.048, 0.071, 0.081 and 0.081 against the 0.085 bound below, and the
+# 0.27-0.31 s steps are most of the phase (a 1,000-step run took 254 s)
+ACC_ITERS = 1000
 # 5 % of the subject's 1.7-unit height. Not tightened to 1.5 x a first
 # run: six runs at 1,000 steps read 0.0276-0.0505 against a marching
 # cubes truth, 0.0454 against the tets truth
@@ -3523,22 +3544,228 @@ def phase_profile(out_dir: str, device: str = "cuda"):
     return rec
 
 
-PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "containment", "serve",
-          "check", "stages", "native_io", "tets", "cli", "eval", "turntable",
-          "color", "dense", "runs", "train", "train_check", "configs",
-          "train_data", "precompute", "prt", "compute_points", "profile",
-          "accuracy")
-# run only when named in --phases
-EXTRA_PHASES = ("train_profile", "serve_profile")
+# parallel: (a) NCCL at world size 1 in this process, (b) two gloo ranks
+# sharing the one card (NCCL refuses two ranks on one device)
+PAR_RESOLUTION = 512             # (a): the point octree
+# (a): the dense chain. At world size 1 one slab holds the whole field,
+# and the JAX package's 21-bit face format (2^21 / 3 crossing points a
+# slab for cubes, kept in the port's extractor) refuses the random-weight
+# subject at 512^3 (3,592,673 points) and at 256^3 (861,574): PERF.md §6,
+# PR 17's readings
+PAR_DENSE_RESOLUTION = 128
+PAR_RESOLUTION_2 = 256           # (a): the subjects, the CLI; (b)
+# a data-parallel step against the single-device step on the whole
+# batch: the losses (tests/test_parallel.py's rtol on total) and the
+# whole float32 update (||d_dp - d_1|| / ||d_1||: the split batch sums
+# its gradients in another order; 2.6e-4 at the CPU tests' size)
+PAR_LOSS_TOL = 1e-4
+PAR_UPDATE_TOL = 1e-3
+PAR_DEADLINE_S = 300
 
 
-def print_card() -> None:
+def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def parallel_spec(resolution: int, subjects, parts) -> dict:
+    """parallel/checks.run's spec at full width: subject 0, the train
+    phase's batch (2 items x 6,000 points) and, for the step, a float32
+    trunk under SGD; every part against its single-device counterpart."""
+    from surs_tpu_torch.data.loader import collate
+    from surs_tpu_torch.serve import normalize_image
+    from surs_tpu_torch.train.loop import batch_host_arrays
+    cfg = full_width_config(resolution=resolution, batch_size=TRAIN_BATCH,
+                            num_sample_inout=TRAIN_POINTS)
+    arr, mask = normalize_image(*subjects[0])
+    return dict(cfg={f.name: getattr(cfg, f.name)
+                     for f in dataclasses.fields(cfg)},
+                parts=parts, image=arr, mask=mask, images=arr,
+                reference=True, fused=True,
+                step_cfg={"dtype": "float32", "optimizer": "SGD",
+                          "momentum": 0.0, "learning_rate": 1e-3},
+                batch=batch_host_arrays(collate(train_items(cfg)),
+                                        quantize_images=True))
+
+
+def parallel_checks(res: dict, resolution: int) -> dict:
+    """One rank's parts (checks.run's result) -> launches, seconds, peak
+    MiB and the comparisons with the single-device runs: the dense
+    meshes as quantised sets (rank 0), the octrees bit for bit, the
+    step's losses and update."""
+    out = {}
+    for part, r in res.items():
+        if part == "rank":
+            continue
+        o = {k: r.get(k) for k in ("launches", "seconds", "peak_mib")}
+        if part == "dense" and r["meshes"] is not None:
+            got, ref = r["meshes"], r["reference"]
+
+            def grid(v):
+                return (np.asarray(v, np.float64) + 0.5) * resolution
+            o["faces"] = [int(got[1].shape[0]), int(got[3].shape[0])]
+            o["same_as_single"] = [
+                same_mesh(grid(got[i]), got[i + 1], grid(ref[i]),
+                          ref[i + 1]) for i in (0, 2)]
+        if part in ("octree", "batch"):
+            o["bitwise"] = r["bitwise"]
+        if part == "batch":
+            o["faces"] = [int(m[1].shape[0]) for m in r["meshes"]]
+        if part == "step":
+            o["loss_rel_err"] = max(
+                abs(r["metrics"][k] - r["reference"][k])
+                / max(abs(r["reference"][k]), 1e-12)
+                for k in r["metrics"])
+            o["update_rel_err"] = r["update_rel_err"]
+            o["total"] = r["metrics"]["total"]
+        out[part] = o
+    return out
+
+
+def parallel_ok(parts: dict) -> bool:
+    for part, o in parts.items():
+        if not o["launches"]:
+            return False
+        if "same_as_single" in o and not (all(o["same_as_single"])
+                                          and min(o["faces"]) > 0):
+            return False
+        if part in ("octree", "batch") and not o["bitwise"]:
+            return False
+        if part == "step" and not (o["loss_rel_err"] <= PAR_LOSS_TOL
+                                   and o["update_rel_err"]
+                                   <= PAR_UPDATE_TOL):
+            return False
+    return True
+
+
+def phase_parallel(out_dir: str, subjects):
+    """The multi-device paths (surs_tpu_torch/parallel/). (a) NCCL at
+    world size 1 in this process, full width: the dense subject through
+    K3 chained into the sharded extraction (cubes) against
+    eval_grid_dense_cols + the card's cubes as quantised sets, at 128^3
+    (PAR_DENSE_RESOLUTION: the largest grid whose one slab passes the
+    JAX package's 21-bit face format); the point-sharded mono octree at
+    512^3 through K1 against the unsharded one, bit for bit;
+    ShardedReconstructor on the subject at 256^3; the data-parallel
+    fused step (K2) against the single-device fused step; the eval CLI
+    with --mc_backend sharded at 256^3. (b) Two ranks on the one card:
+    first over NCCL (its error printed), then over gloo (the collectives
+    of CUDA tensors that gloo lacks go through pinned host memory): the
+    dense subject at 256^3 with the extraction, the point octree at
+    256^3 and the step at batch 2 (a row a rank), each against the
+    single-device result. Every part's launches of its
+    kernel are zeroed just before it and read just after (> 0)."""
+    import contextlib
+    import datetime
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from surs_tpu_torch.apps.eval_surs import main as eval_main
+    from surs_tpu_torch.ops import fused_mlp as fm
+    from surs_tpu_torch.parallel import checks, make_mesh
+    from surs_tpu_torch.parallel.launch import spawn
+
+    rec = {"phase": "parallel", "card": card()}
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(dir=out_dir)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(store, "pg"), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh(device_type="cuda")
+        a = {"world": 1, "backend": "nccl",
+             "dense_resolution": PAR_DENSE_RESOLUTION}
+        res = checks.run(mesh, parallel_spec(PAR_DENSE_RESOLUTION, subjects,
+                                             ["dense"]))
+        a["parts"] = parallel_checks(res, PAR_DENSE_RESOLUTION)
+        del res
+        res = checks.run(mesh, parallel_spec(
+            PAR_RESOLUTION, subjects, ["octree", "step"]))
+        a["parts"].update(parallel_checks(res, PAR_RESOLUTION))
+        # ShardedReconstructor meshes with the host library's tets, as
+        # the JAX package does: 17.7 M faces at 512^3 without pruning
+        res = checks.run(mesh, parallel_spec(
+            PAR_RESOLUTION_2, subjects, ["batch"]))
+        a["parts"].update(parallel_checks(res, PAR_RESOLUTION_2))
+        del res
+        torch.cuda.empty_cache()
+        # the eval CLI, --mc_backend sharded, inside the NCCL group
+        root = os.path.join(out_dir, "par_in")
+        for sub in ("image_final", "mask_final"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        img, mask = subjects[0]
+        write_png(os.path.join(root, "image_final", "par.png"), img)
+        write_png(os.path.join(root, "mask_final", "par.png"), mask)
+        # 256^3: a 512^3 served field's one slab can hold more active
+        # cells than the extractor's default max_cells_shard, as in the
+        # JAX package, and the CLI passes no capacity
+        cfg = full_width_config(resolution=PAR_RESOLUTION_2)
+        fm.fused_dual_mlp.launches = 0
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            eval_main(["--dataroot", root, "--name", "par", *cli_args(cfg),
+                       "--mc_backend", "sharded", "--results_path",
+                       out_dir])
+        torch.cuda.synchronize()
+        objs = [os.path.join(out_dir, "par", f"par_{t}.obj")
+                for t in ("HR", "LR")]
+        a["cli"] = {"seconds": time.perf_counter() - t1,
+                    "launches": fm.fused_dual_mlp.launches,
+                    "obj_bytes": [os.path.getsize(p) for p in objs]}
+        shutil.rmtree(os.path.join(out_dir, "par"))
+    finally:
+        dist.destroy_process_group()
+    a["seconds"] = time.perf_counter() - t0
+    rec["a"] = a
+    torch.cuda.empty_cache()
+    # (b) two ranks on one card
+    t0 = time.perf_counter()
+    try:
+        spawn(checks.run, 2, backend="nccl", device="cuda",
+              args=(dict(cfg={"loadSize": 32, "num_stack_lr": 1},
+                         parts=[]),), deadline=120, store_dir=out_dir)
+        nccl = "ran"
+    except RuntimeError as err:
+        # rank 0's exception and NCCL's own reason, once
+        lines = [ln.strip() for ln in str(err).splitlines()
+                 if any(k in ln for k in ("Error:", "Duplicate GPU",
+                                          "ncclInvalidUsage"))]
+        nccl = " | ".join(dict.fromkeys(lines))[:600] or str(err)[-400:]
+    ranks = spawn(checks.run, 2, backend="gloo", device="cuda",
+                  args=(parallel_spec(PAR_RESOLUTION_2, subjects,
+                                      ["dense", "octree", "step"]),),
+                  n_points=2, deadline=PAR_DEADLINE_S, store_dir=out_dir)
+    rec["b"] = {"world": 2, "backend": "gloo", "nccl_two_ranks": nccl,
+                "ranks": [parallel_checks(r, PAR_RESOLUTION_2)
+                          for r in ranks],
+                "seconds": time.perf_counter() - t0}
+    emit(rec)
+    ok = (parallel_ok(a["parts"]) and a["cli"]["launches"] > 0
+          and min(a["cli"]["obj_bytes"]) > 0
+          and all(parallel_ok(r) for r in rec["b"]["ranks"])
+          and "same_as_single" in rec["b"]["ranks"][0]["dense"])
+    if not ok:
+        raise AssertionError(f"parallel failed: {rec}")
+    return rec
+
+
+PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "containment", "serve",
+          "check", "stages", "native_io", "tets", "cli", "eval", "turntable",
+          "color", "dense", "runs", "train", "train_check", "configs",
+          "train_data", "precompute", "prt", "compute_points", "profile",
+          "parallel", "accuracy")
+# run only when named in --phases
+EXTRA_PHASES = ("train_profile", "serve_profile")
+
+
+def print_card() -> None:
+    print(card(), flush=True)
 
 
 def main() -> int:
@@ -3619,6 +3846,9 @@ def main() -> int:
                 phase_compute_points(dataroot)
         if "profile" in phases:
             phase_profile(out_dir)
+        if "parallel" in phases:
+            phase_parallel(out_dir, subjects)
+            torch.cuda.empty_cache()
         if "accuracy" in phases:
             phase_accuracy(out_dir)
     emit({"orbax_import": "not run on the card: reading the JAX package's "

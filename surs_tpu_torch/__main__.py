@@ -10,7 +10,10 @@ processes the current directory contents and exits. Runs on CUDA;
 ``--device cpu`` runs on the CPU instead. Images are decoded with PIL
 where it is installed; without it only PNG files are read
 (``data/png.py``: 8-bit gray, gray + alpha, RGB, RGBA), and a ``.jpg``
-raises an error that names PIL.
+raises an error that names PIL. ``--mc_backend sharded`` extracts the
+meshes in x-slabs over the ranks of the process group; under
+``torchrun --nproc_per_node N -m surs_tpu_torch --mc_backend sharded``
+every rank serves each image and rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ from __future__ import annotations
 import os
 import time
 
+import torch.distributed as dist
+
 
 def main(argv=None):
-    from .config import build_parser, config_from_args
-    from .data.png import load_gray, load_rgb
-    from .serve import SuRSService
+    from .config import (build_parser, config_from_args, resolve_config,
+                         resolve_device)
+    from .parallel.launch import distributed_run
 
     parser = build_parser()
     parser.add_argument("--watch_dir", required=True)
@@ -31,10 +36,21 @@ def main(argv=None):
     parser.add_argument("--device", default=None)
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    service = SuRSService(cfg, device=args.device)
+    device = resolve_device(args.device)
+    distributed_run(resolve_config(cfg, device), device,
+                    lambda root: _serve(args, cfg, device, root))
+
+
+def _serve(args, cfg, device, root: bool):
+    """The watch loop on one rank; ``root`` prints."""
+    from .data.png import load_gray, load_rgb
+    from .serve import SuRSService
+
+    service = SuRSService(cfg, device=device)
     out_dir = os.path.join(cfg.results_path, cfg.name)
     done = set()
-    print("service ready; watching", args.watch_dir, flush=True)
+    if root:
+        print("service ready; watching", args.watch_dir, flush=True)
 
     def load(name):
         img_path = None
@@ -51,6 +67,11 @@ def main(argv=None):
             os.path.splitext(f)[0] for f in os.listdir(args.watch_dir)
             if f.lower().endswith((".jpg", ".png"))
             and not f.endswith("_mask.png"))
+        if dist.is_initialized():
+            # every rank serves rank 0's listing: the same collectives
+            listing = [names]
+            dist.broadcast_object_list(listing, src=0)
+            names = listing[0]
         fresh = [n for n in names if n not in done]
         if fresh:
             t0 = time.time()
@@ -58,7 +79,9 @@ def main(argv=None):
                 ((*load(n), n) for n in fresh), out_dir)
             dt = (time.time() - t0) / len(fresh)
             for name, pair in zip(fresh, pairs):
-                print(f"{name}: {dt:.2f}s/subject -> {pair[0]}", flush=True)
+                if root:
+                    print(f"{name}: {dt:.2f}s/subject -> {pair[0]}",
+                          flush=True)
                 done.add(name)
         if args.once:
             break

@@ -13,6 +13,13 @@ state dict; without one the weights are random from ``--seed``. Runs on
 CUDA and raises without a GPU; ``--device cpu`` runs on the CPU.
 ``--octree_mode`` picks the octree evaluator, as in the JAX CLI.
 
+``--mc_backend sharded`` extracts both meshes in x-slabs over the ranks
+of the process group (``parallel/sharded_mc.py``): alone it is one rank;
+under ``torchrun --nproc_per_node N -m surs_tpu_torch.apps.eval_surs
+--mc_backend sharded ...`` every rank evaluates the subject (NCCL on the
+cards) and meshes its slab, and rank 0 prints and writes the files. A
+``torchrun`` launch takes no other backend.
+
 ``--with_color --load_netC_checkpoint_path <netC>`` also writes
 ``<image>_HR_color.obj``: the HR mesh read back from its file, each
 vertex colored by the color net (``compat/torch_import.py:load_netC``: a
@@ -60,11 +67,9 @@ def colorize_mesh(service, color_net, is_ref: bool, data: dict,
 
 
 def main(argv=None) -> None:
-    from ..compat.torch_import import load_netC
-    from ..config import (build_parser, config_from_args, print_config,
-                          resolve_config, resolve_device)
-    from ..data.datasets import EvalDataset
-    from ..serve import SuRSService
+    from ..config import (build_parser, config_from_args, resolve_config,
+                          resolve_device)
+    from ..parallel.launch import distributed_run
 
     parser = build_parser()
     parser.add_argument("--device", default=None,
@@ -75,29 +80,43 @@ def main(argv=None) -> None:
     # the eval CLI's octree evaluator is --octree_mode (the service's
     # knob is serve_octree_mode)
     cfg = dataclasses.replace(cfg, serve_octree_mode=cfg.octree_mode)
-    print(print_config(cfg))
+    distributed_run(cfg, device, lambda root: _eval(cfg, device, root))
+
+
+def _eval(cfg, device, root: bool) -> None:
+    """The CLI's work on one rank; ``root`` prints and colors."""
+    from ..compat.torch_import import load_netC
+    from ..config import print_config
+    from ..data.datasets import EvalDataset
+    from ..serve import SuRSService
+
+    def say(*args):
+        if root:
+            print(*args)
+
+    say(print_config(cfg))
 
     dataset = EvalDataset(cfg)
-    print("test data size:", len(dataset))
+    say("test data size:", len(dataset))
     service = SuRSService(cfg, device=device)
     color_net, is_ref = None, False
     if cfg.with_color:
         if cfg.load_netC_checkpoint_path:
             color_net, is_ref = load_netC(cfg, device)
         else:
-            print("--with_color: no netC given (--load_netC_checkpoint_path)"
-                  "; no color OBJ is written")
+            say("--with_color: no netC given (--load_netC_checkpoint_path)"
+                "; no color OBJ is written")
 
     out_dir = os.path.join(cfg.results_path, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
-    print("generate mesh (test) ...")
+    say("generate mesh (test) ...")
     for idx in range(len(dataset)):
         data = dataset[idx]
         save_path = os.path.join(out_dir, f"{data['name']}.obj")
         p_hr, _ = service.rec.gen_mesh(service.cfg, data, save_path)
-        if color_net is not None:
+        if color_net is not None and root:
             colorize_mesh(service, color_net, is_ref, data, p_hr)
-        print("saved", save_path)
+        say("saved", save_path)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,8 @@ The port's own copy of the ``SuRSConfig`` fields and ``build_parser`` of
 lines carry over), plus the port's own resolution of the ``auto``
 performance knobs: the JAX package keys them on ``jax.default_backend()``
 (``surs_tpu/config.py:286-295``); here they key on the torch device.
-
-Knob values whose code path is not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Every knob value of the JAX package has a ported path; an unknown value
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -202,16 +201,12 @@ AUTO = {
             "mc_backend": "device", "mc_algorithm": "cubes"},
 }
 
-# (knob, value) -> the ROADMAP.md item that ports it
-_UNPORTED = {
-    ("mc_backend", "sharded"): "A13 multi-device",
-}
 _PORTED = {
     "dtype": ("float32", "bfloat16"),
     "feature_dtype": ("float32", "bfloat16"),
     "octree_mode": ("hostloop", "fused", "mono", "runs"),
     "serve_octree_mode": ("hostloop", "fused", "mono", "runs"),
-    "mc_backend": ("device", "host", "auto"),
+    "mc_backend": ("device", "host", "auto", "sharded"),
     "mc_algorithm": ("cubes", "tets"),
 }
 
@@ -231,15 +226,11 @@ def resolve_device(device=None) -> torch.device:
 
 def resolve_config(cfg: SuRSConfig, device) -> SuRSConfig:
     """Return ``cfg`` with every 'auto' knob pinned for ``device``; raise
-    ``NotImplementedError`` for values whose path is not ported."""
+    ``ValueError`` for a value no path takes."""
     table = AUTO["cuda" if torch.device(device).type == "cuda" else "cpu"]
     upd = {name: (table[name] if getattr(cfg, name) == "auto"
                   else getattr(cfg, name)) for name in table}
     cfg = dataclasses.replace(cfg, **upd)
-    for (name, value), item in _UNPORTED.items():
-        if getattr(cfg, name) == value:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP.md {item})")
     for name, allowed in _PORTED.items():
         if getattr(cfg, name) not in allowed:
             raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")

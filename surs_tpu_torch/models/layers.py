@@ -72,7 +72,14 @@ class BatchNorm(nn.Module):
     ``F.batch_norm`` would take the unbiased one). There is no
     ``num_batches_tracked``. ``update_stats`` False (``frozen_stats``)
     skips the move: a checkpointed trunk recomputes its forward in the
-    backward pass, and the statistics move once a step."""
+    backward pass, and the statistics move once a step.
+
+    ``sync`` (a ``parallel.comm.Comm`` of the ``data`` axis, set by
+    ``sync_batch_stats``) takes the statistics over the global batch, as
+    XLA does for a batch sharded over ``data``: the per-channel sums of
+    x and x^2 are summed over the ranks (with their gradient), and every
+    rank moves the same running statistics. torch's ``SyncBatchNorm``
+    takes the unbiased variance and Welford's merge, so it is not used."""
 
     eps = 1e-5
     momentum = 0.9
@@ -80,6 +87,7 @@ class BatchNorm(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.update_stats = True
+        self.sync = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -89,8 +97,17 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             dims = (0, 2, 3)
-            mean = xf.mean(dims)
-            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+            if self.sync is None:
+                mean = xf.mean(dims)
+                sq = xf.square().mean(dims)
+            else:
+                from ..parallel.comm import all_reduce_sum_ad
+                count = xf.numel() // xf.shape[1] * self.sync.size
+                sums = all_reduce_sum_ad(
+                    torch.cat([xf.sum(dims), xf.square().sum(dims)]),
+                    self.sync)
+                mean, sq = (sums / count).chunk(2)
+            var = (sq - mean.square()).clamp_min(0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -116,6 +133,20 @@ def frozen_stats(module: nn.Module):
     finally:
         for m in bns:
             m.update_stats = True
+
+
+@contextlib.contextmanager
+def sync_batch_stats(module: nn.Module, comm):
+    """Within the block every BatchNorm of ``module`` takes its training
+    statistics over ``comm``'s ranks (None: this rank's batch alone)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.sync = comm
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.sync = None
 
 
 class Norm(nn.Module):

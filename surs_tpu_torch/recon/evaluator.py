@@ -323,8 +323,44 @@ def eval_grid_dense_cols(cols_weights, feat_lr, feat_hr, calib,
     [1, H, W, C] in any dtype, a calibration for which
     :func:`dense_cols_separable` holds. Returns (hr, lr) [R, R, R], the
     flat order ``column * R + k``."""
-    check_cols_features(cols_weights, feat_lr, feat_hr)
+    return _dense_cols_rows(cols_weights, feat_lr, feat_hr, calib,
+                            resolution, mat, load_size, z_size, 0,
+                            resolution)
+
+
+def eval_grid_dense_cols_sharded(cols_weights, feat_lr, feat_hr, calib,
+                                 resolution: int, mat: np.ndarray,
+                                 load_size: int, z_size: float, mesh
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-device dense evaluation
+    (``surs_tpu/recon/evaluator.py:1233-1320``): the R^2 columns split
+    over the mesh's ``points`` axis, rank s scoring columns s R^2/n ...
+    (s+1) R^2/n (R/n whole x-rows) through kernel K3 against the whole
+    feature maps and weights. No collective runs: each rank returns its
+    (hr, lr) x-slab [R/n, R, R], the slab layout that
+    ``parallel.sharded_mc`` extracts from (``local=True``);
+    ``parallel.gather_field`` joins slabs into the volume."""
+    from ..parallel.mesh import POINT_AXIS
+
     R = resolution
+    n = mesh.size(POINT_AXIS)
+    if R % n != 0:
+        raise ValueError(
+            f"column-sharded dense evaluation needs resolution divisible "
+            f"by the '{POINT_AXIS}' axis size (whole x-rows per device); "
+            f"got R={R} over {n} shards")
+    rows = R // n
+    return _dense_cols_rows(cols_weights, feat_lr, feat_hr, calib, R, mat,
+                            load_size, z_size,
+                            mesh.index(POINT_AXIS) * rows, rows)
+
+
+def _dense_cols_rows(cols_weights, feat_lr, feat_hr, calib, R: int,
+                     mat: np.ndarray, load_size: int, z_size: float,
+                     row0: int, rows: int):
+    """x-rows ``row0 ... row0 + rows`` of the dense grid through K3:
+    (hr, lr) [rows, R, R]."""
+    check_cols_features(cols_weights, feat_lr, feat_hr)
     mat = np.asarray(mat)
     dev = feat_lr.device
     calib_t = torch.as_tensor(np.asarray(calib, np.float32),
@@ -334,7 +370,7 @@ def eval_grid_dense_cols(cols_weights, feat_lr, feat_hr, calib,
     zf = normalize_depth(orthogonal(zpts[None], calib_t)[0, 2, :],
                          load_size, z_size).contiguous()
     # each column at k = 0 (its uv holds for every k)
-    cid = torch.arange(R * R, device=dev)
+    cid = torch.arange(row0 * R, (row0 + rows) * R, device=dev)
     xyz = orthogonal(flat_index_to_world(cid * R, R, 1, mat)[None], calib_t)
     mask = in_image_mask(xyz[:, :2, :])[0]
     uv = xyz[:, :2, :].transpose(1, 2)
@@ -343,4 +379,4 @@ def eval_grid_dense_cols(cols_weights, feat_lr, feat_hr, calib,
     hr, lr = fused_dual_mlp_cols(x_lr, x_hr, zf, cols_weights)
     hr.mul_(mask[:, None])
     lr.mul_(mask[:, None])
-    return hr.view(R, R, R), lr.view(R, R, R)
+    return hr.view(rows, R, R), lr.view(rows, R, R)

@@ -71,10 +71,78 @@ def march(volume: torch.Tensor, level: float, groups, name: str,
     the three corner pairs. Triangles come out group by group, slot by
     slot, cell by cell. ``cell_chunk`` bounds the cells emitted at once
     (the working set on the card) without changing the result."""
+    _, verts, faces = _march(volume, level, groups, name, cell_chunk,
+                             max_cells, max_tris, max_verts, max_pts)
+    return verts, faces
+
+
+def march_slab(slab: torch.Tensor, level: float, groups, name: str,
+               x_offset: int, global_x: int, x_act_limit: int,
+               cell_chunk: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`march` over one x-slab of a [global_x, Y, Z] field, the
+    slab ownership of ``_march_core(x_act_limit=)``
+    (``surs_tpu/recon/tetra_device.py:629``): ``slab`` holds the planes
+    ``x_offset ...`` of the field (the slab and its halo), and only the
+    cells whose base plane is below ``x_act_limit`` (slab-local) emit.
+    Returns (edge keys [V] int64, verts [V, 3] float32, faces [F, 3]
+    int64): the keys and the vertices in GLOBAL coordinates, each vertex
+    interpolated from its edge's (lower id, higher id) ends, so every
+    slab that emits an edge computes the same vertex and slabs merge by
+    key (``parallel/sharded_mc.py``).
+
+    The crossing-point and edge limits of ``_march_core`` have no
+    counterpart here: this march welds only the edges of the triangles
+    that owned cells emit, so a halo plane's points enter only through
+    an owned cell's edges and the halo's own edges never do."""
+    return _march(slab, level, groups, name, cell_chunk, None, None, None,
+                  None, x_offset=x_offset, global_x=global_x,
+                  x_act_limit=x_act_limit)
+
+
+def count_slab(slab: torch.Tensor, level: float, deltas: np.ndarray,
+               x_act_limit: int, x_pt_limit: int, x_edge_limit: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(active cells, crossing points) of a slab as 0-d device tensors,
+    no sync (``_count_cells``, ``surs_tpu/recon/tetra_device.py:840``):
+    cells with base plane < ``x_act_limit``; points p with x <
+    ``x_pt_limit`` whose edge (p, p + d) crosses the level for some
+    delta d of ``deltas``, edges with dx = 1 only from x <
+    ``x_edge_limit`` (the last slab's duplicated halo plane would make
+    phantom diagonal crossings)."""
+    inside = slab > level
+    X, Y, Z = inside.shape
+    cmax = torch.zeros((X - 1, Y - 1, Z - 1), dtype=torch.bool,
+                       device=slab.device)
+    cmin = torch.ones_like(cmax)
+    for dx, dy, dz in _CORNER_OFFSETS.tolist():
+        blk = inside[dx:X - 1 + dx, dy:Y - 1 + dy, dz:Z - 1 + dz]
+        cmax |= blk
+        cmin &= blk
+    n_cells = (cmax & ~cmin)[:x_act_limit].sum()
+    pts = torch.zeros_like(inside)
+    for dx, dy, dz in np.asarray(deltas).tolist():
+        hx = min(X - dx, x_edge_limit) if dx else X
+        a = inside[:hx, :Y - dy, :Z - dz]
+        b = inside[dx:dx + hx, dy:, dz:]
+        pts[:hx, :Y - dy, :Z - dz] |= a != b
+    return n_cells, pts[:x_pt_limit].sum()
+
+
+def _march(volume: torch.Tensor, level: float, groups, name: str,
+           cell_chunk: Optional[int], max_cells: Optional[int],
+           max_tris: Optional[int], max_verts: Optional[int],
+           max_pts: Optional[int], x_offset: int = 0,
+           global_x: Optional[int] = None,
+           x_act_limit: Optional[int] = None):
+    """-> (edge keys, verts, faces); ``global_x`` set: the slab mode of
+    :func:`march_slab`."""
     dev = volume.device
     vol = volume.float().contiguous()
     X, Y, Z = vol.shape
-    empty = (torch.zeros((0, 3), dtype=torch.float32, device=dev),
+    slab = global_x is not None
+    empty = (torch.zeros((0,), dtype=torch.int64, device=dev),
+             torch.zeros((0, 3), dtype=torch.float32, device=dev),
              torch.zeros((0, 3), dtype=torch.int64, device=dev))
     cmax = vol[:-1, :-1, :-1]
     cmin = cmax
@@ -82,8 +150,11 @@ def march(volume: torch.Tensor, level: float, groups, name: str,
         blk = vol[dx:X - 1 + dx, dy:Y - 1 + dy, dz:Z - 1 + dz]
         cmax = torch.maximum(cmax, blk)
         cmin = torch.minimum(cmin, blk)
-    active = torch.nonzero((cmin <= level) & (cmax > level))     # [M, 3]
-    del cmin, cmax
+    cells = (cmin <= level) & (cmax > level)
+    if x_act_limit is not None:
+        cells = cells[:x_act_limit]
+    active = torch.nonzero(cells)                                # [M, 3]
+    del cmin, cmax, cells
     n_cells = active.shape[0]
     _check(name, "cells", n_cells, max_cells)
     if n_cells == 0:
@@ -97,12 +168,14 @@ def march(volume: torch.Tensor, level: float, groups, name: str,
     # keys / ends per (group, slot), each a list over the cell chunks
     keys = [[[] for _ in range(s)] for s in n_slots]
     ends = [[[] for _ in range(s)] for s in n_slots]
-    n_vox = X * Y * Z
+    base = x_offset * Y * Z          # global id of the volume's first point
+    n_vox = (global_x if slab else X) * Y * Z
     step = n_cells if cell_chunk is None else cell_chunk
     for lo in range(0, n_cells, step):
         corner = active[lo:lo + step, None, :] + offs[None, :, :]
         gid = (corner[..., 0] * Y + corner[..., 1]) * Z + corner[..., 2]
         inside = flat[gid] > level                               # [m, 8]
+        gid = gid + base
         for g, (corners, table) in enumerate(tables):
             bits = torch.arange(corners.shape[0], device=dev)
             case = (inside[:, corners].long() << bits).sum(dim=1)
@@ -115,14 +188,13 @@ def march(volume: torch.Tensor, level: float, groups, name: str,
                 gb = torch.gather(g_has, 1, tri[..., 1])
                 keys[g][slot].append(torch.minimum(ga, gb) * n_vox
                                      + torch.maximum(ga, gb))
-                ends[g][slot].append(torch.stack([ga, gb], dim=-1))
+                if not slab:
+                    ends[g][slot].append(torch.stack([ga, gb], dim=-1))
     keys = torch.cat([k for per in keys for chunks in per for k in chunks])
-    ends = torch.cat([e for per in ends for chunks in per for e in chunks])
     _check(name, "tris", keys.shape[0], max_tris)
     if keys.shape[0] == 0:
         return empty
     keys = keys.reshape(-1)
-    ends = ends.reshape(-1, 2)
     uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
     _check(name, "verts", uniq.shape[0], max_verts)
     if max_pts is not None:
@@ -130,13 +202,20 @@ def march(volume: torch.Tensor, level: float, groups, name: str,
         # smaller id: the crossing points are the distinct low ends
         _check(name, "pts", torch.unique(uniq // n_vox).shape[0], max_pts)
     faces = inv.reshape(-1, 3)
-    last = torch.zeros(uniq.shape[0], dtype=torch.int64, device=dev)
-    last = last.scatter_reduce(0, inv, torch.arange(inv.shape[0], device=dev),
-                               reduce="amax", include_self=False)
-    rep = ends[last]
+    if slab:
+        # every slab orients an edge the same way: (lower, higher) id
+        rep = torch.stack([uniq // n_vox, uniq % n_vox], dim=-1)
+    else:
+        ends = torch.cat([e for per in ends for chunks in per
+                          for e in chunks]).reshape(-1, 2)
+        last = torch.zeros(uniq.shape[0], dtype=torch.int64, device=dev)
+        last = last.scatter_reduce(0, inv,
+                                   torch.arange(inv.shape[0], device=dev),
+                                   reduce="amax", include_self=False)
+        rep = ends[last]
 
-    va = flat[rep[:, 0]].double()
-    vb = flat[rep[:, 1]].double()
+    va = flat[rep[:, 0] - base].double()
+    vb = flat[rep[:, 1] - base].double()
     denom = vb - va
     denom = torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12),
                         denom)
@@ -150,7 +229,7 @@ def march(volume: torch.Tensor, level: float, groups, name: str,
     verts = pa + t[:, None] * (pb - pa)
     ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
           & (faces[:, 0] != faces[:, 2]))
-    return verts.float(), faces[ok]
+    return uniq, verts.float(), faces[ok]
 
 
 def marching_cubes(volume: torch.Tensor, level: float, **caps

@@ -38,6 +38,10 @@ _DEVICE_EXTRACTORS = {"cubes": marching_cubes, "tets": marching_tetrahedra}
 # that one mc_caps can serve every backend (surs_tpu/recon/pipeline.py:350)
 _DEVICE_CAPS = ("max_cells", "max_tris", "max_verts", "max_pts",
                 "cell_chunk")
+# those of the sharded extractor (surs_tpu/recon/pipeline.py:326-327);
+# 'local' says the fields are this rank's x-slabs
+_SHARDED_CAPS = ("mesh", "axis", "algorithm", "cell_chunk",
+                 "max_cells_shard", "max_tris_shard", "local")
 
 
 def eval_calibration(batch: int = 1) -> np.ndarray:
@@ -60,13 +64,19 @@ class Reconstructor:
     K4 when the geometry allows it. Otherwise the generic dense path or
     the mono octree (both through K1) runs; 'hostloop', 'fused' and
     'mono' all name the mono octree. ``load_size`` and ``z_size`` default
-    to the model's. A multi-view model raises: it trains only."""
+    to the model's. A multi-view model raises: it trains only.
+
+    ``point_mesh`` (parallel.Mesh) splits each chunk of the K1 paths'
+    points over the mesh's ``points`` ranks, each rank scoring its part
+    and all of them gathering the parts (``surs_tpu/recon/
+    pipeline.py:107-111``); every rank runs the same octree and gets the
+    same fields. ``num_samples`` must then divide by the axis size."""
 
     def __init__(self, model, weights: FusedWeights, device,
                  feature_dtype: torch.dtype = torch.float32,
                  octree_mode: str = "mono", cols_weights=None,
                  load_size: Optional[int] = None,
-                 z_size: Optional[float] = None):
+                 z_size: Optional[float] = None, point_mesh=None):
         if model.num_views != 1:
             raise ValueError(
                 f"num_views={model.num_views}: the JAX package has no "
@@ -80,6 +90,7 @@ class Reconstructor:
         self.cols_weights = cols_weights
         self.load_size = model.load_size if load_size is None else load_size
         self.z_size = model.z_size if z_size is None else z_size
+        self.point_mesh = point_mesh
 
     @torch.inference_mode()
     def encode(self, images):
@@ -139,6 +150,16 @@ class Reconstructor:
                                  calib_t, self.load_size, self.z_size)
             return hr[0], lr[0]
 
+        if self.point_mesh is not None:
+            from ..parallel.batch_recon import shard_eval_fn_over_points
+            from ..parallel.mesh import POINT_AXIS
+            n = self.point_mesh.size(POINT_AXIS)
+            if num_samples % n:
+                raise ValueError(
+                    f"point-sharded evaluation needs num_samples "
+                    f"({num_samples}) divisible by the '{POINT_AXIS}' "
+                    f"axis size {n}")
+            eval_fn = shard_eval_fn_over_points(eval_fn, self.point_mesh)
         if not use_octree:
             stats["mode"] = "dense"
             stats["queries"] = stats.get("queries", 0) + R ** 3
@@ -196,11 +217,19 @@ class Reconstructor:
           library's marching tetrahedra (the algorithm key is not read);
         * 'auto': 'device', and 'host' only when a capacity in ``mc_caps``
           (``max_cells``, ``max_tris``, ``max_verts``, ``max_pts``; none by
-          default) is exceeded.
+          default) is exceeded;
+        * 'sharded': one x-slab a rank of ``mc_caps["mesh"]``'s
+          ``mc_caps["axis"]`` (default: every rank of the process group,
+          or this process alone), merged on the axis' rank 0
+          (``parallel/sharded_mc.py``; ``algorithm`` 'cubes' by default,
+          ``cell_chunk``, ``max_cells_shard``, ``max_tris_shard``, and
+          ``local`` when the fields are this rank's slabs). The other
+          ranks get None for each mesh, and every rank must take both.
 
-        ``stats["mc"]`` names what ran ('device/tets', 'device/cubes' or
-        'host/tets'); an 'auto' fallback also sets
-        ``stats["mc_fallback"]`` to the capacity error."""
+        ``stats["mc"]`` names what ran ('device/tets', 'device/cubes',
+        'host/tets', 'sharded/cubes' or 'sharded/tets'); an 'auto'
+        fallback also sets ``stats["mc_fallback"]`` to the capacity
+        error."""
         mat = np.asarray(mat)
         caps = mc_caps or {}
         stats = {} if stats is None else stats
@@ -210,9 +239,18 @@ class Reconstructor:
             return verts.astype(np.float32), faces
 
         if mc_backend == "sharded":
-            raise NotImplementedError(
-                "mc_backend='sharded' is not ported yet (ROADMAP.md A13 "
-                "multi-device)")
+            from ..parallel.sharded_mc import \
+                extract_isosurface_sharded_begin
+            kw = {k: v for k, v in caps.items() if k in _SHARDED_CAPS}
+            # both fields begin (halo, counts) before either resolves
+            res = [extract_isosurface_sharded_begin(
+                sdf, level, defer_sync=True, **kw)
+                for sdf in (sdf_hr, sdf_lr)]
+            stats["mc"] = f"sharded/{kw.get('algorithm', 'cubes')}"
+            for finish in [r() for r in res]:
+                mesh = finish()
+                yield None if mesh is None else to_world(*mesh)
+            return
         if mc_backend not in ("device", "host", "auto"):
             raise ValueError(f"unknown mc_backend {mc_backend!r}")
         if mc_backend in ("device", "auto"):
@@ -272,8 +310,11 @@ class Reconstructor:
                 mc_caps={"algorithm": cfg.mc_algorithm}, stats=st)
             for path in paths:
                 t0 = time.perf_counter()
-                verts, faces = next(meshes)
+                mesh = next(meshes)
                 t1 = time.perf_counter()
+                if mesh is None:        # a sharded mesh lands on rank 0
+                    continue
+                verts, faces = mesh
                 save_obj_mesh(path, verts, faces)
                 st.setdefault("faces", []).append(len(faces))
                 st["extract_s"] = st.get("extract_s", 0.0) + t1 - t0

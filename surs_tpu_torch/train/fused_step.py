@@ -41,10 +41,12 @@ def fused_train_loss(model: SuRSNet, batch: Dict, op=None):
     return errors["total"], (errors, preds_hr[-1], preds_lr[-1])
 
 
-def make_fused_train_step(model: SuRSNet, optimizer) -> Callable:
+def make_fused_train_step(model: SuRSNet, optimizer, mesh=None
+                          ) -> Callable:
     """``step(state, batch) -> (state, metrics)``, the contract of
-    train/step.make_train_step. On CUDA tensors each stack launches K2
-    (or raises); on the CPU the op takes K2's plain version."""
+    train/step.make_train_step (``mesh``: its data-parallel step, K2 on
+    each rank's rows). On CUDA tensors each stack launches K2 (or
+    raises); on the CPU the op takes K2's plain version."""
     del optimizer
     if model.norm == "batch":
         raise ValueError("the fused train step does not thread batch "
@@ -54,4 +56,4 @@ def make_fused_train_step(model: SuRSNet, optimizer) -> Callable:
                          "flat [B*V, N] rows and cannot fuse views; use "
                          "make_train_step for num_views > 1")
     op = make_fused_dual_mlp_train_ad()
-    return make_step(lambda m, batch: fused_train_loss(m, batch, op))
+    return make_step(lambda m, batch: fused_train_loss(m, batch, op), mesh)

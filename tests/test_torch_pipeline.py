@@ -119,15 +119,11 @@ def test_auto_table():
     ("mc_backend", "sharded"), ("remat", True),
     ("remat_encoder", True), ("with_color", True)])
 def test_unported_values_raise(field, value):
-    """Values whose path is not ported raise naming their ROADMAP.md
-    item; remat and remat_encoder (ROADMAP.md A19) and with_color (A11)
-    are ported and resolve."""
+    """Every value that once raised naming its ROADMAP.md item is ported
+    and resolves: mc_backend 'sharded' (A13), remat and remat_encoder
+    (A19), with_color (A11)."""
     cfg = dataclasses.replace(SuRSConfig(), **{field: value})
-    if field in ("remat", "remat_encoder", "with_color"):
-        assert getattr(resolve_config(cfg, "cpu"), field) is value
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        resolve_config(cfg, "cpu")
+    assert getattr(resolve_config(cfg, "cpu"), field) == value
 
 
 @pytest.mark.parametrize("field,value", [

@@ -233,7 +233,9 @@ def test_extract_pair_capacity_raises_and_auto_falls_back():
     for (vg, fg), (vh, fh) in zip(got, host):
         np.testing.assert_array_equal(vg, vh)
         np.testing.assert_array_equal(fg, fh)
-    with pytest.raises(NotImplementedError, match="A13"):
+    # the sharded backend (A13) keeps the JAX package's slab shapes: a
+    # 20^3 field has Z % 32 != 0
+    with pytest.raises(ValueError, match="sharded extraction needs"):
         list(Reconstructor.extract_pair(*fields, mat, 0.5, "sharded"))
 
 
@@ -361,7 +363,11 @@ def test_auto_extractor_is_the_device_cubes(device):
 
 
 def test_resolve_config_rejects_sharded_and_unknown():
-    with pytest.raises(NotImplementedError, match="A13"):
-        resolve_config(SuRSConfig(mc_backend="sharded"), "cpu")
+    """mc_backend 'sharded' resolves since A13 was ported; an unknown
+    value raises."""
+    assert resolve_config(SuRSConfig(mc_backend="sharded"),
+                          "cpu").mc_backend == "sharded"
+    with pytest.raises(ValueError, match="mc_backend"):
+        resolve_config(SuRSConfig(mc_backend="slabs"), "cpu")
     with pytest.raises(ValueError, match="mc_algorithm"):
         resolve_config(SuRSConfig(mc_algorithm="dual"), "cpu")
