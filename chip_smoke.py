@@ -109,7 +109,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               128^3.
  9e'. turntable: the render_turntable app on the eval phase's subject-0
               HR mesh at 512^3 (the reference-style netG's; kept from
-              the eval phase's clean-up): 36 frames at 256 into a GIF
+              the eval phase's clean-up): 4 frames at 256 into a GIF
               (s a frame, the GIF's bytes), frame 0 rendered on the card
               against the CPU (masks on 99.9 % of the pixels, RGB within
               1 LSB where both are set).
@@ -158,7 +158,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               width, on the `train` phase's batch and points: (a) 48
               steps of a batch-norm model with --fused_train, which
               takes the plain step (K2's launch count zeroed just before
-              and read just after: 0), beside 6 plain group-norm steps;
+              and read just after: 0), beside 3 plain group-norm steps;
               the running statistics moved; its netG_latest loaded
               strictly into a fresh service through load_netG (the
               statistics restored) and the first training item's view
@@ -169,7 +169,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               num_views=2 at batch 1 with --fused_train (the plain step,
               K2 0): predictions [2, N, 1],
               finite losses, seconds per step, peak memory. (c) one
-              float32 step at batch 4 each way (no remat, remat, remat +
+              float32 step at batch 1 each way (no remat, remat, remat +
               remat_encoder) for group and batch norm from the same
               weights: loss, gradients (GRAD_TOL, GRAD_FLOOR) and running
               statistics against no remat's; peak memory, step seconds.
@@ -182,7 +182,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               hole: max |winding difference| within WIND_TOL and no label
               mismatch outside the band ||w| - pi| <= WIND_TOL; ms per
               item (HR + LR) against roofline.containment_work's bound
-              and the plain version's ms.
+              and the plain version's ms; the kernel's inner loop in the
+              built library's SASS (probes/winding_sass.py, cuobjdump):
+              instructions a point-triangle pair and the item's time at
+              full issue at the card's maximum SM clock.
  15. train_data: writes a dataset of 2 such bodies x 12 yaws (RENDER
               JPEG and MASK PNG at 512 with the bodies' silhouettes under
               the PARAM camera, PARAM .npy, GEO/OBJ through the port's
@@ -259,9 +262,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               full width. (a) NCCL at world size 1 in this process: the
               dense subject through K3 into the sharded extraction
               (cubes), as quantised sets against eval_grid_dense_cols and
-              the card's cubes, at 128^3, the largest grid whose one
-              slab's crossing points pass the JAX package's 21-bit face
-              format; the point-sharded mono octree at 512^3 through K1 (bit for bit
+              the card's cubes, at 256^3 (one slab holds 861,574
+              crossing points, past the JAX package's 21-bit face
+              format, which the port does not keep); the point-sharded
+              mono octree at 512^3 through K1 (bit for bit
               against the unsharded one); ShardedReconstructor on the
               subject at 256^3 (K1, host tets); the data-parallel fused
               step (K2, float32 trunk, SGD) against the single-device
@@ -518,9 +522,9 @@ def phase_build():
     spills = {k: v for k, v in ptxas.items()
               if v.get("spill_stores") or v.get("spill_loads")}
     if any(k in spills for k in WGMMA_KERNELS + K5_KERNELS
-           + ("cols_terms_bf16_kernel",)):
-        raise AssertionError(f"a wgmma kernel, the pre-pass or K5 spills: "
-                             f"{spills}")
+           + ("cols_terms_bf16_kernel", "winding_number_kernel")):
+        raise AssertionError(f"a wgmma kernel, the pre-pass, K5 or the "
+                             f"winding number spills: {spills}")
     if any(k in serialized for k in WGMMA_KERNELS):
         raise AssertionError(f"ptxas serialized the wgmma of {serialized}")
     if hgmma and not all(hgmma.get(k) for k in WGMMA_KERNELS):
@@ -1918,11 +1922,13 @@ def phase_train_check(cfg, items, trained, device: str = "cuda"):
 # 1 - 0.9^48 = 99.4 % of the batches'; after 16 the init's unit variance
 # still holds 19 %, enough to take the eval trunk off scale and leave
 # the served meshes empty), the group-norm plain steps beside them,
-# multi-view steps, and the remat comparison's batch
+# multi-view steps (a second step gives a warm time), and the remat
+# comparison's batch (one item runs the same recomputation as four, in
+# less time; the peaks then cover one item)
 CONFIG_STEPS = 48
-GN_STEPS = 6
-MV_STEPS = 4
-REMAT_BATCH = 4
+GN_STEPS = 3
+MV_STEPS = 2
+REMAT_BATCH = 1
 # the batch-norm model served from its netG file against the same
 # trained model in memory through the same path: the same weights,
 # statistics and kernels (bf16 trunk and K1), so equal up to a cuDNN
@@ -2513,6 +2519,8 @@ def phase_containment():
                   bound_ms=bound_ms, bound_by=bound_by,
                   gflop=flops / 1e9)
     timing["roofline_share"] = bound_ms / timing["ms"]
+    timing.update(winding_sass(timing["ms"], len(pts) * (len(hr.faces)
+                                                      + len(lr.faces))))
     rec["timing"] = timing
     emit(rec)
     bad = {k: v for k, v in rec["cases"].items()
@@ -2521,6 +2529,34 @@ def phase_containment():
     if bad or rec["cases"]["hr"]["inside"] == 0:
         raise AssertionError(f"containment failed: {bad or rec}")
     return rec
+
+
+def winding_sass(ms: float, pairs: int) -> dict:
+    """The winding-number kernel's inner loop in the built library's SASS
+    (probes/winding_sass.py): instructions a point-triangle pair on its
+    common path, and the time of ``pairs`` pairs at full issue at the
+    card's maximum SM clock beside ``ms``; where the toolkit has no
+    cuobjdump, a line saying so."""
+    import torch
+    from surs_tpu_torch.ops import cuda_build
+    from surs_tpu_torch.probes import winding_sass as ws
+    if ws.cuobjdump() is None:
+        return {"sass": "no cuobjdump"}
+    lib = cuda_build.build(["winding_number"])["winding_number"]
+    loop = ws.sass_loop(ws.library_sass(lib))
+    if "error" in loop:
+        raise AssertionError(f"winding-number SASS: {loop['error']}")
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue = ws.issue_ms(loop["per_pair"], pairs, sms, clock)
+    return {"sass_per_pair": loop["per_pair"],
+            "sass_pairs_per_iteration": loop["pairs_per_iteration"],
+            "sass_mufu": loop["mufu"], "sass_histogram": loop["histogram"],
+            "clock_max_mhz": clock, "issue_ms": issue,
+            "issue_share": issue / ms}
 
 
 class _Timed:
@@ -3172,7 +3208,9 @@ PRT_CHUNK = 4_096                # compute_prt's vertex chunk
 # visibility of one chunk, card against CPU from the same float32 inputs
 # (tests/test_torch_prt.py's share against the JAX package's)
 PRT_VIS_SHARE = 1e-3
-TURNTABLE_FRAMES, TURNTABLE_RES = 36, 256
+# 4 frames of the 1.32 M-face mesh (about 0.7 s each): the app's whole
+# path and a GIF, frame 0 held to the CPU
+TURNTABLE_FRAMES, TURNTABLE_RES = 4, 256
 COMPUTE_POINTS = 6_000
 
 
@@ -3333,7 +3371,7 @@ def phase_prt(out_dir: str, dataroot: str, device: str = "cuda"):
 
 
 def phase_turntable(obj_path: str, device: str = "cuda"):
-    """The render_turntable app on a served 512^3 HR mesh: 36 frames at
+    """The render_turntable app on a served 512^3 HR mesh: 4 frames at
     256 into a GIF (s a frame, the GIF's bytes), then frame 0 rendered on
     the card against the CPU."""
     import torch
@@ -3547,13 +3585,10 @@ def phase_profile(out_dir: str, device: str = "cuda"):
 # parallel: (a) NCCL at world size 1 in this process, (b) two gloo ranks
 # sharing the one card (NCCL refuses two ranks on one device)
 PAR_RESOLUTION = 512             # (a): the point octree
-# (a): the dense chain. At world size 1 one slab holds the whole field,
-# and the JAX package's 21-bit face format (2^21 / 3 crossing points a
-# slab for cubes, kept in the port's extractor) refuses the random-weight
-# subject at 512^3 (3,592,673 points) and at 256^3 (861,574): PERF.md §6,
-# PR 17's readings
-PAR_DENSE_RESOLUTION = 128
-PAR_RESOLUTION_2 = 256           # (a): the subjects, the CLI; (b)
+# (a): the dense chain (at world size 1 one slab holds the whole field:
+# 861,574 crossing points, past the JAX package's 21-bit face format,
+# which the port does not keep), the subjects, the CLI; (b)
+PAR_RESOLUTION_2 = 256
 # a data-parallel step against the single-device step on the whole
 # batch: the losses (tests/test_parallel.py's rtol on total) and the
 # whole float32 update (||d_dp - d_1|| / ||d_1||: the split batch sums
@@ -3646,10 +3681,9 @@ def phase_parallel(out_dir: str, subjects):
     """The multi-device paths (surs_tpu_torch/parallel/). (a) NCCL at
     world size 1 in this process, full width: the dense subject through
     K3 chained into the sharded extraction (cubes) against
-    eval_grid_dense_cols + the card's cubes as quantised sets, at 128^3
-    (PAR_DENSE_RESOLUTION: the largest grid whose one slab passes the
-    JAX package's 21-bit face format); the point-sharded mono octree at
-    512^3 through K1 against the unsharded one, bit for bit;
+    eval_grid_dense_cols + the card's cubes as quantised sets, at 256^3
+    (one slab of 861,574 crossing points); the point-sharded mono octree
+    at 512^3 through K1 against the unsharded one, bit for bit;
     ShardedReconstructor on the subject at 256^3; the data-parallel
     fused step (K2) against the single-device fused step; the eval CLI
     with --mc_backend sharded at 256^3. (b) Two ranks on the one card:
@@ -3680,18 +3714,14 @@ def phase_parallel(out_dir: str, subjects):
     try:
         mesh = make_mesh(device_type="cuda")
         a = {"world": 1, "backend": "nccl",
-             "dense_resolution": PAR_DENSE_RESOLUTION}
-        res = checks.run(mesh, parallel_spec(PAR_DENSE_RESOLUTION, subjects,
-                                             ["dense"]))
-        a["parts"] = parallel_checks(res, PAR_DENSE_RESOLUTION)
-        del res
+             "dense_resolution": PAR_RESOLUTION_2}
         res = checks.run(mesh, parallel_spec(
             PAR_RESOLUTION, subjects, ["octree", "step"]))
-        a["parts"].update(parallel_checks(res, PAR_RESOLUTION))
+        a["parts"] = parallel_checks(res, PAR_RESOLUTION)
         # ShardedReconstructor meshes with the host library's tets, as
         # the JAX package does: 17.7 M faces at 512^3 without pruning
         res = checks.run(mesh, parallel_spec(
-            PAR_RESOLUTION_2, subjects, ["batch"]))
+            PAR_RESOLUTION_2, subjects, ["dense", "batch"]))
         a["parts"].update(parallel_checks(res, PAR_RESOLUTION_2))
         del res
         torch.cuda.empty_cache()
@@ -3949,6 +3979,8 @@ def main() -> int:
         "bound_ms": cont["timing"]["bound_ms"],
         "bound_by": cont["timing"]["bound_by"],
         "library_ms": None,
+        "sass_per_pair": cont["timing"].get("sass_per_pair"),
+        "issue_ms": cont["timing"].get("issue_ms"),
         "per": "one training item: 25,500 points against the HR (327,680 "
                "faces) and the LR (20,480) mesh",
     }]})

@@ -12,9 +12,14 @@ maximum too).
 ``csrc/winding_number.cu`` on CUDA tensors (counted in
 ``winding_number.launches``) and takes the plain version
 ``winding_number_ref`` on CPU tensors; anything else raises, and a
-failed build raises. The JAX package's ``winding_number`` is a
-``lax.scan`` that XLA fuses on the TPU; it reaches no ``pallas_call``,
-so this kernel is the port's counterpart of an XLA fusion.
+failed build raises. The kernel reads the triangles as 16-byte-aligned
+records (``pack_triangles``, built on the card) and takes approximate
+square roots and its own arctangent (``ATAN_COEFFS``);
+tests/test_torch_containment.py holds a numpy model of that arithmetic
+to ``np.arctan2`` and to the plain version. The JAX package's
+``winding_number`` is a ``lax.scan`` that XLA fuses on the TPU; it
+reaches no ``pallas_call``, so this kernel is the port's counterpart of
+an XLA fusion.
 """
 
 from __future__ import annotations
@@ -28,13 +33,22 @@ import torch
 
 from ..config import resolve_device
 
-# csrc/winding_number.cu: points a block, triangles a shared-memory tile
+# csrc/winding_number.cu: threads and points a block, triangle records
+# a shared-memory tile; a record is 12 floats (A, B, C, each padded to 4)
 THREADS = 128
-TILE = 256
-# blocks the plan aims for on each SM: 16 blocks of 128 threads fill one
-BLOCKS_PER_SM = 16
+POINTS_PER_THREAD = 4
+BLOCK_POINTS = THREADS * POINTS_PER_THREAD
+TILE = 128
+RECORD_FLOATS = 12
+# the plan spreads the blocks over at most this many waves of the
+# kernel's resident blocks
+MAX_WAVES = 4
 _MAX_SPLITS = 65535
 _INT_MAX = 2 ** 31 - 1
+# the kernel's arctangent: atan(r) / r ~ P(r^2) on [0, 1], P's
+# coefficients from the constant term up (winding_number.cu, ATAN_C0-7)
+ATAN_COEFFS = (0.999999881, -0.333319902, 0.199697301, -0.140195221,
+               0.0991442278, -0.0594884418, 0.0242539942, -0.00469375867)
 # the plain version's chunks: [points, triangles] intermediates of at
 # most 1,024 x 2,048 pairs (8 MB a float32 [P, T] tensor, 25 MB a
 # [P, T, 3] one)
@@ -76,17 +90,33 @@ def winding_number_ref(points: torch.Tensor, tris: torch.Tensor
     return out
 
 
-def winding_plan(n_points: int, n_tris: int, sms: int) -> Tuple[int, int]:
+def winding_plan(n_points: int, n_tris: int, sms: int,
+                 blocks_per_sm: int) -> Tuple[int, int]:
     """(splits, tiles a split) of the kernel's launch: the triangles'
-    tiles of TILE go in contiguous shares to ``splits`` blocks a column of
-    points (grid.y), enough for about BLOCKS_PER_SM blocks on each of
-    ``sms`` SMs, and no share is empty."""
+    tiles of TILE go in contiguous shares to ``splits`` blocks a column
+    of BLOCK_POINTS points (grid.y), no share empty. A block's time is
+    its share's tiles, and the card runs ``sms`` x ``blocks_per_sm``
+    blocks at once, so the plan takes the fewest splits that minimise
+    waves x tiles a share, within MAX_WAVES waves (one split where the
+    columns alone fill more)."""
     tiles = -(-n_tris // TILE)
-    columns = -(-n_points // THREADS)
-    want = -(-sms * BLOCKS_PER_SM // max(1, columns))
-    splits = max(1, min(tiles, want, _MAX_SPLITS))
-    per = -(-tiles // splits)
-    return -(-tiles // per), per
+    columns = -(-n_points // BLOCK_POINTS)
+    slots = sms * blocks_per_sm
+    best = None
+    for want in range(1, max(1, min(tiles, _MAX_SPLITS,
+                                    MAX_WAVES * slots // columns)) + 1):
+        per = -(-tiles // want)
+        splits = -(-tiles // per)
+        cost = -(-columns * splits // slots) * per
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
+def pack_triangles(tris: torch.Tensor) -> torch.Tensor:
+    """tris [T, 3, 3] -> the kernel's records [T, 3, 4] (A, B, C, each
+    padded with a 0 to 16 bytes), on tris' device."""
+    return torch.nn.functional.pad(tris, (0, 1))
 
 
 def _check(points: torch.Tensor, tris: torch.Tensor) -> None:
@@ -100,7 +130,7 @@ def _check(points: torch.Tensor, tris: torch.Tensor) -> None:
                              f"{t.dtype}")
     if tris.device != points.device:
         raise ValueError(f"tris on {tris.device}, points on {points.device}")
-    if max(points.shape[0], 9 * tris.shape[0]) > _INT_MAX:
+    if max(3 * points.shape[0], RECORD_FLOATS * tris.shape[0]) > _INT_MAX:
         raise ValueError("points and triangles are counted in int32")
 
 
@@ -121,13 +151,15 @@ def winding_number(points: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
     if points.shape[0] == 0 or tris.shape[0] == 0:
         return out
     with torch.cuda.device(dev):
-        splits, per = winding_plan(points.shape[0], tris.shape[0], _sms(dev))
+        records = pack_triangles(tris)
+        splits, per = winding_plan(points.shape[0], tris.shape[0],
+                                   *_occupancy(dev, lib))
         partial = torch.empty((splits if splits > 1 else 0,
                                points.shape[0]), dtype=torch.float32,
                               device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.surs_winding_number(
-            points.data_ptr(), tris.data_ptr(), partial.data_ptr(),
+            points.data_ptr(), records.data_ptr(), partial.data_ptr(),
             out.data_ptr(), points.shape[0], tris.shape[0], splits, per,
             stream)
     if rc != 0:
@@ -139,16 +171,22 @@ def winding_number(points: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
 
 winding_number.launches = 0
 
-# per device: its SM count; a side stream for contains
-_SMS: Dict[int, int] = {}
+# per device: (its SM count, the kernel's resident blocks an SM); a side
+# stream for contains
+_OCCUPANCY: Dict[int, Tuple[int, int]] = {}
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 
 
-def _sms(dev: torch.device) -> int:
-    if dev.index not in _SMS:
-        _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return _SMS[dev.index]
+def _occupancy(dev: torch.device, lib: ctypes.CDLL) -> Tuple[int, int]:
+    if dev.index not in _OCCUPANCY:
+        blocks = ctypes.c_int(0)
+        rc = lib.surs_winding_blocks_per_sm(ctypes.byref(blocks))
+        if rc != 0 or blocks.value < 1:
+            raise RuntimeError("winding_number occupancy query failed: "
+                               + lib.surs_cuda_error_string(rc).decode())
+        _OCCUPANCY[dev.index] = (torch.cuda.get_device_properties(
+            dev).multi_processor_count, blocks.value)
+    return _OCCUPANCY[dev.index]
 
 
 def _side_stream(dev: torch.device) -> "torch.cuda.Stream":
@@ -161,22 +199,26 @@ def contains(points, verts, faces, device=None) -> np.ndarray:
     """Boolean inside / outside of points [P, 3] with respect to the
     triangle mesh (verts [V, 3], faces [F, 3]): |winding number| > pi, a
     numpy bool array [P]. Runs on ``device``: CUDA unless named (raises
-    without a GPU), ``"cpu"`` for the plain version. On CUDA the copies
-    and the kernel run on a stream of this module's own for the device,
-    which alone is waited for, so a loader thread's containment does not
-    queue behind the work on the caller's stream."""
+    without a GPU), ``"cpu"`` for the plain version. On CUDA the points,
+    the vertices and the faces (as int32) are copied to the card and the
+    triangles gathered there, on a stream of this module's own for the
+    device, which alone is waited for, so a loader thread's containment
+    does not queue behind the work on the caller's stream."""
     dev = resolve_device(device)
-    tris = torch.from_numpy(np.ascontiguousarray(
-        np.asarray(verts, np.float32)[np.asarray(faces)]))
     pts = torch.from_numpy(np.ascontiguousarray(points, dtype=np.float32))
     if dev.type != "cuda":
+        tris = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(verts, np.float32)[np.asarray(faces)]))
         w = winding_number(pts.to(dev), tris.to(dev))
         return (w.abs() > THRESHOLD).cpu().numpy()
     dev = torch.device("cuda", dev.index if dev.index is not None
                        else torch.cuda.current_device())
+    v = torch.from_numpy(np.ascontiguousarray(verts, dtype=np.float32))
+    f = torch.from_numpy(np.ascontiguousarray(faces, dtype=np.int32))
     stream = _side_stream(dev)
     with torch.cuda.stream(stream):
-        w = winding_number(pts.to(dev), tris.to(dev))
+        tris = v.to(dev)[f.to(dev)]
+        w = winding_number(pts.to(dev), tris)
         inside = (w.abs() > THRESHOLD).cpu()
     return inside.numpy()
 
@@ -191,6 +233,9 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.surs_winding_number.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
                                             _P]
         lib.surs_winding_number.restype = ctypes.c_int
+        lib.surs_winding_blocks_per_sm.argtypes = [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.surs_winding_blocks_per_sm.restype = ctypes.c_int
         lib.surs_cuda_error_string.argtypes = [ctypes.c_int]
         lib.surs_cuda_error_string.restype = ctypes.c_char_p
         lib._surs_bound = True

@@ -21,11 +21,15 @@ Ownership, as in the JAX package (:70-92):
     merge is an integer dedup, never an epsilon match.
 
 The JAX halo is 4 planes so that its packed 4^3 word stencils keep their
-shape; the port's march needs one plane, and takes one. The slab-shape,
-``max_cells_shard`` and 21-bit checks are the JAX package's, so both
-packages accept the same calls. The merged mesh's vertices come out in
-global edge-key order, the single-device march's order; its faces in
-rank order, each rank's in the march's emission order.
+shape; the port's march needs one plane, and takes one. The slab-shape
+and ``max_cells_shard`` checks are the JAX package's. Its third check,
+at most 2^21 / slots crossing points a slab, guards the JAX package's
+packed faces (21-bit vertex indices in one word); the port's faces are
+int64 and its slabs weld by int64 edge key, so it takes such slabs and
+returns the mesh where the JAX package raises. The merged mesh's
+vertices come out in global edge-key order, the single-device march's
+order; its faces in rank order, each rank's in the march's emission
+order.
 """
 
 from __future__ import annotations
@@ -36,20 +40,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..recon.marching import (CUBE_GROUPS, CapacityError, count_slab,
-                              march_slab)
+from ..recon.marching import (CUBE_GROUPS, CapacityError,
+                              count_active_cells, march_slab)
 from ..recon.tetra import TET_GROUPS
 from .mesh import POINT_AXIS, Mesh, make_mesh
 
 MIN_SLAB = 4          # the JAX package's HALO: X/n >= 4, (X/n) % 4 == 0
 
-# edge deltas from a cell's min corner: cubes emit axis edges, tets also
-# the face and body diagonals (surs_tpu/recon/tetra_device.py:71-74)
-_DELTAS = {
-    "cubes": np.array([(1, 0, 0), (0, 1, 0), (0, 0, 1)], np.int64),
-    "tets": np.array([((d & 1), (d >> 1) & 1, (d >> 2) & 1)
-                      for d in range(1, 8)], np.int64),
-}
 _GROUPS = {"cubes": CUBE_GROUPS, "tets": TET_GROUPS}
 
 
@@ -87,14 +84,13 @@ def extract_isosurface_sharded_begin(volume, level: float = 0.5,
     (default: every rank of the process group, or this one alone) and
     return it staged as the JAX package stages it:
 
-      * here the halo is exchanged and the slab's active cells and
-        crossing points are counted on the device, with no host sync;
+      * here the halo is exchanged and the slab's active cells are
+        counted on the device, with no host sync;
         with ``defer_sync=True`` the caller gets ``resolve`` back, so a
         second extraction (the LR field) begins before either syncs;
-      * ``resolve()`` gathers every rank's counts (every rank raises the
-        same error, the JAX package's, on a slab over
-        ``max_cells_shard`` or past the 21-bit vertex format), meshes the
-        slab, and returns ``finish``;
+      * ``resolve()`` gathers every rank's active-cell count (every rank
+        raises the same error, the JAX package's, on a slab over
+        ``max_cells_shard``), meshes the slab, and returns ``finish``;
       * ``finish()`` gathers the slabs' meshes on the axis' rank 0 and
         merges them by global edge key: (verts [V, 3] float32 grid
         coordinates, faces [F, 3] int64) numpy arrays there, None on the
@@ -127,26 +123,15 @@ def extract_isosurface_sharded_begin(volume, level: float = 0.5,
     Xs = X // n
     own = vol if local else vol[s * Xs:(s + 1) * Xs]
     slab = _with_halo(own, comm)
-    last = s == n - 1
-    x_act = Xs - 1 if last else Xs
-    counts = torch.stack(count_slab(
-        slab, level, _DELTAS[algorithm], x_act_limit=x_act,
-        x_pt_limit=Xs if last else Xs + 1, x_edge_limit=x_act))
-    n_slots = len(_DELTAS[algorithm])
+    x_act = Xs - 1 if s == n - 1 else Xs
+    cells = count_active_cells(slab, level, x_act_limit=x_act).reshape(1)
 
     def resolve() -> Callable:
-        per = torch.stack(comm.all_gather(counts)).cpu()
-        nc = int(max(1, per[:, 0].max()))
-        npt = int(max(1, per[:, 1].max()))
+        nc = int(torch.cat(comm.all_gather(cells)).max())
         if nc > max_cells_shard:
             raise ValueError(
                 f"sharded extraction: {nc} active cells in one "
                 f"slab > max_cells_shard {max_cells_shard}")
-        if n_slots * npt > (1 << 21):
-            raise ValueError(
-                "packed faces hold 21-bit vertex indices: per-shard "
-                f"crossing points exceed the format ({npt} points x "
-                f"{n_slots} slots > 2^21)")
         keys, verts, faces = march_slab(
             slab, level, _GROUPS[algorithm], "sharded extraction",
             x_offset=s * Xs, global_x=X, x_act_limit=x_act,

@@ -100,16 +100,11 @@ def march_slab(slab: torch.Tensor, level: float, groups, name: str,
                   x_act_limit=x_act_limit)
 
 
-def count_slab(slab: torch.Tensor, level: float, deltas: np.ndarray,
-               x_act_limit: int, x_pt_limit: int, x_edge_limit: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(active cells, crossing points) of a slab as 0-d device tensors,
-    no sync (``_count_cells``, ``surs_tpu/recon/tetra_device.py:840``):
-    cells with base plane < ``x_act_limit``; points p with x <
-    ``x_pt_limit`` whose edge (p, p + d) crosses the level for some
-    delta d of ``deltas``, edges with dx = 1 only from x <
-    ``x_edge_limit`` (the last slab's duplicated halo plane would make
-    phantom diagonal crossings)."""
+def count_active_cells(slab: torch.Tensor, level: float,
+                       x_act_limit: int) -> torch.Tensor:
+    """Active cells of a slab with base plane < ``x_act_limit``, a 0-d
+    device tensor, no sync (``_count_cells``,
+    ``surs_tpu/recon/tetra_device.py:840``)."""
     inside = slab > level
     X, Y, Z = inside.shape
     cmax = torch.zeros((X - 1, Y - 1, Z - 1), dtype=torch.bool,
@@ -119,14 +114,7 @@ def count_slab(slab: torch.Tensor, level: float, deltas: np.ndarray,
         blk = inside[dx:X - 1 + dx, dy:Y - 1 + dy, dz:Z - 1 + dz]
         cmax |= blk
         cmin &= blk
-    n_cells = (cmax & ~cmin)[:x_act_limit].sum()
-    pts = torch.zeros_like(inside)
-    for dx, dy, dz in np.asarray(deltas).tolist():
-        hx = min(X - dx, x_edge_limit) if dx else X
-        a = inside[:hx, :Y - dy, :Z - dz]
-        b = inside[dx:dx + hx, dy:, dz:]
-        pts[:hx, :Y - dy, :Z - dz] |= a != b
-    return n_cells, pts[:x_pt_limit].sum()
+    return (cmax & ~cmin)[:x_act_limit].sum()
 
 
 def _march(volume: torch.Tensor, level: float, groups, name: str,

@@ -251,6 +251,30 @@ def test_sharded_extraction_empty_field_and_errors():
         extract_threads(vol, max_tris_shard=64)
 
 
+# the JAX package's packed faces hold 21-bit vertex indices: it refuses
+# a slab of more than 2^21 / 3 crossing points for cubes
+JAX_SLAB_POINTS = (1 << 21) // 3
+
+
+def test_sharded_extraction_past_the_jax_21_bit_bound():
+    """A random-sign 96^3 field: its one slab at world size 1 holds more
+    crossing points than the JAX package's 21-bit face format takes (a
+    point crossing on one of its three +axis edges), and the port
+    extracts it equal to the single-device march."""
+    vol = np.random.default_rng(6).choice(
+        np.array([0.0, 1.0], np.float32), (96, 96, 96))
+    side = vol > 0.5
+    crossing = np.zeros_like(side)
+    crossing[:-1] |= side[:-1] != side[1:]
+    crossing[:, :-1] |= side[:, :-1] != side[:, 1:]
+    crossing[:, :, :-1] |= side[:, :, :-1] != side[:, :, 1:]
+    assert crossing.sum() > JAX_SLAB_POINTS
+    vs, fs = extract_threads(vol, n=1)
+    vd, fd = marching_cubes(torch.from_numpy(vol), 0.5)
+    np.testing.assert_array_equal(vs, vd.numpy())
+    assert_same_sets(vs, fs, vd.numpy(), fd.numpy())
+
+
 def test_extract_pair_sharded_matches_jax():
     mat = np.diag([2.0 / 31, 2.0 / 31, 2.0 / 31, 1.0]).astype(np.float32)
     mat[:3, 3] = -1.0
