@@ -12,9 +12,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               parallel), with ptxas' registers, spills
               and warnings per kernel and, where the toolkit has
               cuobjdump, the HGMMA count of each kernel's SASS; the bf16
-              K1/K3/K4 kernels, K2's 3xTF32 GEMM and K5's four kernels
-              must not spill, and the wgmma kernels must hold HGMMA that
-              ptxas did not serialize (its C7511 report).
+              K1/K3/K4 kernels, K2's 3xTF32 GEMM, the float32 (3xTF32)
+              K3/K4 kernels and pre-pass and K5's four kernels must not
+              spill, and the wgmma kernels must hold HGMMA that ptxas
+              did not serialize (its C7511 report).
   2. k1:      kernel K1 (fused dual MLP) against its plain PyTorch version
               on the card, at the serving shapes (N = 50,000 and a ragged
               49,999; in bf16 also 257, 129, 127 and 1, the ragged edges
@@ -35,17 +36,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
   4. k3:      kernel K3 (column-shared dual MLP) against its plain version
               on a slice of the dense 512^3 grid (1,024 columns x 512
               depths and a ragged 1,023 x 500; the real depth features of
-              a 512 grid), in bf16 and float32, and in bf16 at 33,769
-              columns x 500 (two chunks of the wrapper, the second
-              ragged); K3 timed on the whole grid (262,144 columns x 512
-              depths, bf16) with its column-term pre-pass alone
-              (``cols_terms_ms``, held to its plain version) and the
-              bound; the whole grid's output held to the plain version at
-              2,048 seeded random columns.
+              a 512 grid) and at 33,769 columns x 500 (two chunks of the
+              wrapper, the second ragged), in bf16 and in float32 (3xTF32
+              on wgmma), the slice timed with its plain version; K3 timed
+              on the whole grid (262,144 columns x 512 depths) in both,
+              with its column-term pre-pass alone (``cols_terms_ms``,
+              held to its plain version), the bound (float32: 3xTF32 at
+              the TF32 peak, the float32 FMA bound beside it) and, in
+              bf16, the plain version; the whole grid's output held to
+              the plain version at 2,048 seeded random columns.
   5. k4:      kernel K4 (window dual MLP) the same way at one chunk of the
               runs evaluator (32,768 windows x 8 depths and ragged 32,767
-              and 17; depth offsets of the 512 level), timed at 32,768
-              with its pre-pass alone.
+              and 17; depth offsets of the 512 level), in bf16 and
+              float32, timed at 32,768 with its pre-pass alone and both
+              bounds in float32.
   6. k5:      kernel K5 (row gather, variants vec and loop) against its
               plain version, bit for bit, at the gather probe's shape
               (49,152 rows of a [16384, 256] bf16 map), a ragged 49,151,
@@ -139,12 +143,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               through K3 (K3's and K1's launch counts zeroed just before
               and read just after: K3 > 0, K1 = 0), with its time by
               stage; K1 scores 50,000 random grid points of the subject
-              and they are held against the dense field.
+              and they are held against the dense field. Then the same
+              with feature_dtype float32: one subject through the float32
+              K3 (K3 > 0, K1 = 0), its time by stage.
  11. runs:    SuRSService(serve_octree_mode="runs") serves the 3 subjects
               of `serve` through K4 (K4 > 0, K1 = 0), with one subject's
-              time by stage; then a float32 runs service and a float32
-              mono service at 128^3, full width, give the same fields
-              within 2e-4.
+              time by stage; one subject with feature_dtype float32
+              through the float32 K4 (K4 > 0, K1 = 0), its time by stage;
+              then a float32 runs service and a float32 mono service at
+              128^3, full width, give the same fields within 2e-4.
  12. train:   train/loop.train at full width (batch 2, 6,000 points,
               --fused_train, bf16 trunk) on one synthetic batch repeated:
               1 warm-up step and 5 timed ones; K2's launch count is zeroed
@@ -286,7 +293,8 @@ torch.profiler breakdown of 3 fused steps) and ``serve_profile`` (one
 mono octree evaluation at 512^3 timed 4 times and profiled once: device
 time by kernel, device operations, K1's device time, busy share). Then a line
 saying that the orbax reader (compat/orbax_import.py) is not run here, a
-``{"kernels": [...]}`` line (K1-K5), a ``{"port_kernels": [...]}`` line
+``{"kernels": [...]}`` line (K1-K5, and the float32 K3 and K4 with
+their own launches from `dense` and `runs`), a ``{"port_kernels": [...]}`` line
 (the winding number, which replaces no Pallas kernel), the card's name
 and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -352,11 +360,13 @@ K2_LAYER_TOL = 1e-5
 # keep kf and pred_lr in float32; only the summation order differs (the
 # column terms are a 320-long FMA chain in the kernel, a blocked product
 # in the plain version), which can flip an activation's bf16 rounding
-# now and then, as for K1. float32: the same products in another order.
+# now and then, as for K1. float32: the kernels' 3xTF32 keeps each
+# product to about 2^-21 relative, at float32 FMA's level (as K2_TOL),
+# and sums in another order.
 COLS_TOL = {"bfloat16": K1_TOL["bfloat16"], "float32": 1e-5}
-# the bf16 column-term pre-pass against its plain version, relative to
-# the largest term: both take the same bf16 products, summed in float32
-# in another order (320 terms, ~1e-7 relative each)
+# the column-term pre-pass against its plain version, relative to the
+# largest term: both take the same bf16 (or 3xTF32 hi / lo) products,
+# summed in float32 in another order (320 terms, ~1e-7 relative each)
 TERMS_TOL = 1e-5
 # the float32 runs service against the float32 mono service at 128^3
 # (tests/test_evaluator_runs.py's tolerance): the window path feeds the
@@ -437,20 +447,23 @@ KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_train_tf32x3_pack_kernel",
            "fused_dual_mlp_train_tf32x3_split_kernel",
            "fused_dual_mlp_train_tf32x3_head_kernel", "cols_terms_bf16_kernel",
-           "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_cols_f32_kernel",
-           "fused_dual_mlp_runs_wgmma_kernel", "fused_dual_mlp_runs_f32_kernel",
+           "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_runs_wgmma_kernel",
+           "cols_terms_tf32x3_kernel", "fused_dual_mlp_cols_tf32x3_kernel",
+           "fused_dual_mlp_runs_tf32x3_kernel",
            "winding_number_kernel", "winding_number_reduce_kernel",
            ) + K5_KERNELS
 # the kernel sources, and the host library of the OBJ writer and reader
 # (csrc/mesh_native.cpp, built with g++ beside them)
 SOURCES = ("fused_dual_mlp", "fused_train_tf32", "fused_cols_mlp",
            "row_gather", "winding_number", "mesh_native")
-# the bf16 K1/K3/K4 chain kernels and K2's 3xTF32 GEMM, whose SASS must
-# hold warpgroup MMAs
+# the bf16 K1/K3/K4 chain kernels, K2's 3xTF32 GEMM and the float32
+# (3xTF32) K3/K4 chain kernels, whose SASS must hold warpgroup MMAs
 WGMMA_KERNELS = ("fused_dual_mlp_wgmma_kernel",
                  "fused_dual_mlp_train_tf32x3_gemm_kernel",
                  "fused_dual_mlp_cols_wgmma_kernel",
-                 "fused_dual_mlp_runs_wgmma_kernel")
+                 "fused_dual_mlp_runs_wgmma_kernel",
+                 "fused_dual_mlp_cols_tf32x3_kernel",
+                 "fused_dual_mlp_runs_tf32x3_kernel")
 
 
 def ptxas_report(log: str):
@@ -522,7 +535,8 @@ def phase_build():
     spills = {k: v for k, v in ptxas.items()
               if v.get("spill_stores") or v.get("spill_loads")}
     if any(k in spills for k in WGMMA_KERNELS + K5_KERNELS
-           + ("cols_terms_bf16_kernel", "winding_number_kernel")):
+           + ("cols_terms_bf16_kernel", "cols_terms_tf32x3_kernel",
+              "winding_number_kernel")):
         raise AssertionError(f"a wgmma kernel, the pre-pass, K5 or the "
                              f"winding number spills: {spills}")
     if any(k in serialized for k in WGMMA_KERNELS):
@@ -765,8 +779,8 @@ def cols_weights(mlp_lr, mlp_hr, dtype):
 
 
 def check_terms(phase, cw, x_lr, x_hr, kf):
-    """The bf16 column-term pre-pass against its plain version; returns
-    its time."""
+    """The column-term pre-pass (bf16 or 3xTF32, by the packing) against
+    its plain version."""
     import torch
     from surs_tpu_torch.ops import fused_mlp as fm
     got = fm.column_terms(x_lr, x_hr, kf, cw)
@@ -781,59 +795,50 @@ def check_terms(phase, cw, x_lr, x_hr, kf):
     return rec
 
 
-def phase_k3():
-    """K3 against its plain version on a slice of the dense grid, in bf16
-    and float32, and in bf16 at ragged shapes; K3, its pre-pass and its
-    plain version timed on the whole grid, whose output is held to the
-    plain version at sampled columns."""
+def cols_bounds(flops: float, nbytes: float, dtype_name: str,
+                fma_flops: float = 0.0) -> dict:
+    """A column kernel's bound in its dtype's arithmetic (float32:
+    3xTF32 at the TF32 peak), and in float32 its FMA bound beside it."""
+    from surs_tpu_torch import roofline
+    peak = "tf32" if dtype_name == "float32" else dtype_name
+    b_ms, b_by = roofline.bound(flops, nbytes, peak)
+    out = {"bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9}
+    if dtype_name == "float32":
+        out["bound_fma_ms"] = roofline.bound(fma_flops, nbytes,
+                                             "float32")[0]
+    return out
+
+
+def k3_grid(rng, zf, cw, dtype_name: str, plain: bool):
+    """K3 on the whole dense grid (the shape the dense path gives it),
+    its pre-pass alone and (``plain``) its plain version timed; the
+    output held to the plain version at sampled columns, every chunk's
+    offsets exercised."""
     import torch
     from surs_tpu_torch import roofline
     from surs_tpu_torch.ops import fused_mlp as fm
 
-    mlp_lr, mlp_hr = kernel_mlps()
-    rng = np.random.default_rng(SEED + 2)
-    zf = grid_depths()
-    recs = []
-    shapes = {"bfloat16": ((SLICE_COLS, DENSE_R), (SLICE_COLS - 1, 500),
-                           (K3_RAGGED_COLS, 500)),
-              "float32": ((SLICE_COLS, DENSE_R), (SLICE_COLS - 1, 500))}
-    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
-                              ("float32", torch.float32)):
-        cw = cols_weights(mlp_lr, mlp_hr, dtype)
-        for ncol, z in shapes[dtype_name]:
-            args = (*seeded_features(rng, ncol), zf[:z].contiguous(), cw)
-            rec = check_cols_kernel("k3", fm.fused_dual_mlp_cols,
-                                    fm.fused_dual_mlp_cols_ref, args,
-                                    dtype_name, (ncol, z))
-            if ncol == SLICE_COLS:
-                rec.update(
-                    ms_slice=time_cuda(lambda: fm.fused_dual_mlp_cols(*args),
-                                       5),
-                    plain_ms_slice=time_cuda(
-                        lambda: fm.fused_dual_mlp_cols_ref(*args), 3))
-            emit(rec)
-            recs.append(rec)
-    # the whole dense grid, bf16: the shape the dense path gives K3
-    cw = cols_weights(mlp_lr, mlp_hr, torch.bfloat16)
     ncol = DENSE_R * DENSE_R
     x_lr, x_hr = seeded_features(rng, ncol)
     args = (x_lr, x_hr, zf, cw)
-    terms = check_terms("k3_terms", cw, x_lr[:SLICE_COLS], x_hr[:SLICE_COLS],
-                        None)
-    flops, nbytes = roofline.k3_work(ncol, DENSE_R, "bfloat16")
-    b_ms, b_by = roofline.bound(flops, nbytes, "bfloat16")
-    grid = {"phase": "k3_grid", "dtype": "bfloat16", "shape": [ncol, DENSE_R],
-            "ms": time_cuda(lambda: fm.fused_dual_mlp_cols(*args), 3, warm=1),
+    terms = check_terms(f"k3_terms_{dtype_name}", cw, x_lr[:SLICE_COLS],
+                        x_hr[:SLICE_COLS], None)
+    fma_flops, nbytes = roofline.k3_work(ncol, DENSE_R, dtype_name)
+    flops = (roofline.k3_tf32x3_work(ncol, DENSE_R)[0]
+             if dtype_name == "float32" else fma_flops)
+    grid = {"phase": "k3_grid", "dtype": dtype_name,
+            "shape": [ncol, DENSE_R],
+            "ms": time_cuda(lambda: fm.fused_dual_mlp_cols(*args),
+                            3 if plain else 2, warm=1),
             "cols_terms_ms": time_cuda(
                 lambda: fm.column_terms(x_lr, x_hr, None, cw), 3),
             "cols_terms_rel_err": terms["max_rel_err"],
-            "plain_ms": time_cuda(lambda: fm.fused_dual_mlp_cols_ref(*args),
-                                  1, warm=0),
-            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            **cols_bounds(flops, nbytes, dtype_name, fma_flops),
             "library_ms": None}
+    if plain:
+        grid["plain_ms"] = time_cuda(
+            lambda: fm.fused_dual_mlp_cols_ref(*args), 1, warm=0)
     grid["tflops"] = flops / (grid["ms"] * 1e-3) / 1e12
-    # the whole grid's output at sampled columns, the plain version run on
-    # those columns' features alone: every chunk's offsets are exercised
     hr, lr = fm.fused_dual_mlp_cols(*args)
     torch.cuda.synchronize()
     cols = torch.from_numpy(np.sort(rng.choice(ncol, GRID_SAMPLE_COLS,
@@ -844,15 +849,62 @@ def phase_k3():
     grid["sampled_max_abs_err"] = max(
         (hr[cols] - ref_hr).abs().max().item(),
         (lr[cols] - ref_lr).abs().max().item())
-    grid["tol"] = COLS_TOL["bfloat16"]
+    grid["tol"] = COLS_TOL[dtype_name]
     emit(grid)
     del hr, lr
     if not (bool(torch.isfinite(ref_hr).all())
-            and grid["sampled_max_abs_err"] <= COLS_TOL["bfloat16"]):
+            and grid["sampled_max_abs_err"] <= COLS_TOL[dtype_name]):
         raise AssertionError(f"K3's whole grid disagrees: {grid}")
-    recs.append({"dtype": "bfloat16",
-                 "max_abs_err": grid["sampled_max_abs_err"]})
-    return {"checks": recs, "grid": grid}
+    return grid
+
+
+def phase_k3():
+    """K3 against its plain version on a slice of the dense grid and at
+    ragged shapes (two chunks, the second ragged), in bf16 and float32;
+    K3 and its pre-pass timed on the whole grid in both, with the plain
+    version in bf16 (in float32 at the slice), the whole grid's output
+    held to the plain version at sampled columns."""
+    import torch
+    from surs_tpu_torch import roofline
+    from surs_tpu_torch.ops import fused_mlp as fm
+
+    mlp_lr, mlp_hr = kernel_mlps()
+    rng = np.random.default_rng(SEED + 2)
+    zf = grid_depths()
+    recs, grids = [], {}
+    shapes = ((SLICE_COLS, DENSE_R), (SLICE_COLS - 1, 500),
+              (K3_RAGGED_COLS, 500))
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        cw = cols_weights(mlp_lr, mlp_hr, dtype)
+        for ncol, z in shapes:
+            args = (*seeded_features(rng, ncol), zf[:z].contiguous(), cw)
+            rec = check_cols_kernel("k3", fm.fused_dual_mlp_cols,
+                                    fm.fused_dual_mlp_cols_ref, args,
+                                    dtype_name, (ncol, z))
+            if ncol == SLICE_COLS:
+                fma_flops, nbytes = roofline.k3_work(ncol, z, dtype_name)
+                flops = (roofline.k3_tf32x3_work(ncol, z)[0]
+                         if dtype_name == "float32" else fma_flops)
+                rec.update(
+                    ms_slice=time_cuda(lambda: fm.fused_dual_mlp_cols(*args),
+                                       5),
+                    plain_ms_slice=time_cuda(
+                        lambda: fm.fused_dual_mlp_cols_ref(*args), 3),
+                    **{f"{k}_slice": v for k, v in cols_bounds(
+                        flops, nbytes, dtype_name, fma_flops).items()})
+            emit(rec)
+            recs.append(rec)
+        grids[dtype_name] = k3_grid(rng, zf, cw, dtype_name,
+                                    plain=dtype_name == "bfloat16")
+        recs.append({"dtype": dtype_name,
+                     "max_abs_err": grids[dtype_name]["sampled_max_abs_err"]})
+        del cw
+        torch.cuda.empty_cache()
+    return {"checks": recs, "grid": grids["bfloat16"],
+            "grid_f32": grids["float32"],
+            "slice_f32": next(r for r in recs if r.get("dtype") == "float32"
+                              and r.get("shape") == [SLICE_COLS, DENSE_R])}
 
 
 def phase_k4():
@@ -868,12 +920,11 @@ def phase_k4():
     zf = grid_depths()
     zt = zf[:ZB].contiguous()
     kf_all = zf - zf[0]
-    recs, main = [], None
-    counts = {"bfloat16": (NWIN, NWIN - 1, 17), "float32": (NWIN, NWIN - 1)}
+    recs, main = [], {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
         cw = cols_weights(mlp_lr, mlp_hr, dtype)
-        for nr in counts[dtype_name]:
+        for nr in (NWIN, NWIN - 1, 17):
             k0 = torch.from_numpy(rng.integers(0, DENSE_R // ZB, nr) * ZB)
             kf = kf_all[k0.cuda()].contiguous()
             x_lr, x_hr = seeded_features(rng, nr)
@@ -882,25 +933,27 @@ def phase_k4():
                                     fm.fused_dual_mlp_runs_ref, args,
                                     dtype_name, (nr, ZB))
             if nr == NWIN:
-                flops, nbytes = roofline.k4_work(nr, ZB, dtype_name)
-                b_ms, b_by = roofline.bound(flops, nbytes, dtype_name)
+                fma_flops, nbytes = roofline.k4_work(nr, ZB, dtype_name)
+                flops = (roofline.k4_tf32x3_work(nr, ZB)[0]
+                         if dtype_name == "float32" else fma_flops)
                 rec.update(
                     ms=time_cuda(lambda: fm.fused_dual_mlp_runs(*args), 20),
                     plain_ms=time_cuda(
                         lambda: fm.fused_dual_mlp_runs_ref(*args), 5),
-                    bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
+                    **cols_bounds(flops, nbytes, dtype_name, fma_flops),
                     library_ms=None)
                 rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
-                if dtype_name == "bfloat16":
-                    terms = check_terms("k4_terms", cw, x_lr, x_hr, kf)
-                    rec.update(
-                        cols_terms_ms=time_cuda(
-                            lambda: fm.column_terms(x_lr, x_hr, kf, cw), 20),
-                        cols_terms_rel_err=terms["max_rel_err"])
-                    main = rec
+                terms = check_terms(f"k4_terms_{dtype_name}", cw, x_lr, x_hr,
+                                    kf)
+                rec.update(
+                    cols_terms_ms=time_cuda(
+                        lambda: fm.column_terms(x_lr, x_hr, kf, cw), 20),
+                    cols_terms_rel_err=terms["max_rel_err"])
+                main[dtype_name] = rec
             emit(rec)
             recs.append(rec)
-    return {"checks": recs, "main": main}
+    return {"checks": recs, "main": main["bfloat16"],
+            "main_f32": main["float32"]}
 
 
 def check_gather(feat, idx, want, grids=(None,)):
@@ -1672,15 +1725,52 @@ def phase_dense(out_dir: str, subjects):
            "field_lr_range": [sdf_lr.min().item(), sdf_lr.max().item()],
            "stages": {k: stages[k] for k in ("encode_s", "evaluate_s",
                                              "extract_s", "write_s")}}
-    emit(rec)
     del service, sdf_hr, sdf_lr
     clear_objs(out_dir)
     torch.cuda.empty_cache()
+    rec["float32"] = f32 = dense_float32(out_dir, img, mask, subjects)
+    emit(rec)
     if not (k3 > 0 and k1 == 0 and rec["mode"] == "dense-cols"
             and stats["faces"][1] > 0 and err <= SERVE_TOL
-            and stages["mode"] == "dense-cols"):
+            and stages["mode"] == "dense-cols"
+            and f32["k3_launches"] > 0 and f32["k1_launches"] == 0
+            and f32["mode"] == f32["stages"]["mode"] == "dense-cols"
+            and f32["faces"][1] > 0):
         raise AssertionError(f"dense failed: {rec}")
     return rec
+
+
+def dense_float32(out_dir: str, img, mask, subjects) -> dict:
+    """One 512^3 subject served with --feature_dtype float32 through the
+    float32 (3xTF32) K3, K3's and K1's launch counts zeroed just before
+    and read just after; its time by stage."""
+    import torch
+    from surs_tpu_torch.ops import fused_mlp as fm
+    from surs_tpu_torch.serve import SuRSService
+
+    service = SuRSService(full_width_config(use_octree=False,
+                                            feature_dtype="float32"))
+    service.warmup((256, 256))
+    stats = {}
+    torch.cuda.synchronize()
+    fm.fused_dual_mlp.launches = 0        # main path starts here
+    fm.fused_dual_mlp_cols.launches = 0
+    t1 = time.perf_counter()
+    service.reconstruct(img, mask, "dense_f32", out_dir, stats=stats)
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t1, "mode": stats["mode"],
+           "queries": stats["queries"], "faces": stats["faces"],
+           "k3_launches": fm.fused_dual_mlp_cols.launches,
+           "k1_launches": fm.fused_dual_mlp.launches}
+    stages = phase_stages(service, subjects, out_dir,
+                          phase="dense_f32_stages")
+    out["stages"] = {k: stages[k] for k in ("mode", "encode_s",
+                                            "evaluate_s", "extract_s",
+                                            "write_s")}
+    del service
+    clear_objs(out_dir)
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_runs(out_dir: str, subjects, serve_rec=None):
@@ -1716,9 +1806,33 @@ def phase_runs(out_dir: str, subjects, serve_rec=None):
     del service
     clear_objs(out_dir)
     torch.cuda.empty_cache()
+    # one 512^3 subject with --feature_dtype float32: the float32 (3xTF32)
+    # K4's main path, its launch counts zeroed just before and read just
+    # after
+    img, mask = subjects[0]
+    service = SuRSService(full_width_config(serve_octree_mode="runs",
+                                            feature_dtype="float32"))
+    service.warmup((256, 256))
+    st_f = {}
+    torch.cuda.synchronize()
+    fm.fused_dual_mlp.launches = 0
+    fm.fused_dual_mlp_runs.launches = 0
+    t1 = time.perf_counter()
+    service.reconstruct(img, mask, "runs_f32", out_dir, stats=st_f)
+    torch.cuda.synchronize()
+    f32 = {"seconds": time.perf_counter() - t1, "mode": st_f["mode"],
+           "queries": st_f["queries"], "faces": st_f["faces"],
+           "k4_launches": fm.fused_dual_mlp_runs.launches,
+           "k1_launches": fm.fused_dual_mlp.launches}
+    f32_stages = phase_stages(service, subjects, out_dir,
+                              phase="runs_f32_stages")
+    f32["stages"] = {k: f32_stages[k] for k in ("encode_s", "evaluate_s",
+                                                "extract_s", "write_s")}
+    del service
+    clear_objs(out_dir)
+    torch.cuda.empty_cache()
     # float32, full width, 128^3: the window path against the point path
     small = dict(resolution=128, dtype="float32", feature_dtype="float32")
-    img, mask = subjects[0]
     st_r, st_m = {}, {}
     f_runs = SuRSService(full_width_config(serve_octree_mode="runs",
                                            **small)).fields(img, mask, st_r)
@@ -1732,6 +1846,7 @@ def phase_runs(out_dir: str, subjects, serve_rec=None):
            "f32_runs_vs_mono_128": err, "f32_tol": RUNS_VS_MONO_TOL,
            "f32_modes": [st_r["mode"], st_m["mode"]],
            "f32_queries": [st_r["queries"], st_m["queries"]],
+           "float32": f32,
            "stages": {k: stages[k] for k in ("encode_s", "evaluate_s",
                                              "extract_s", "write_s")}}
     if serve_rec is not None:
@@ -1743,7 +1858,9 @@ def phase_runs(out_dir: str, subjects, serve_rec=None):
             and all(r["mode"] == "octree-runs" and r["faces_lr"] > 0
                     for r in per)
             and rec["f32_modes"] == ["octree-runs", "octree-mono"]
-            and stages["mode"] == "octree-runs"):
+            and stages["mode"] == "octree-runs"
+            and f32["k4_launches"] > 0 and f32["k1_launches"] == 0
+            and f32["mode"] == "octree-runs" and f32["faces"][1] > 0):
         raise AssertionError(f"runs failed: {rec}")
     return rec
 
@@ -3945,6 +4062,40 @@ def main() -> int:
         "plain_ms": k4["main"]["plain_ms"],
         "bound_ms": k4["main"]["bound_ms"],
         "bound_by": k4["main"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_dual_mlp_cols_tf32x3",
+        "route": "cuda",
+        "source": "surs_tpu_torch/csrc/fused_cols_mlp.cu",
+        "replaces": "surs_tpu/ops/fused_mlp.py:576 (float32 weights)",
+        "launches": dense["float32"]["k3_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3["checks"]
+                           if r["dtype"] == "float32"),
+        "ms": k3["slice_f32"]["ms_slice"],
+        "plain_ms": k3["slice_f32"]["plain_ms_slice"],
+        "bound_ms": k3["slice_f32"]["bound_ms_slice"],
+        "bound_by": k3["slice_f32"]["bound_by_slice"],
+        "bound_fma_ms": k3["slice_f32"]["bound_fma_ms_slice"],
+        "grid_ms": k3["grid_f32"]["ms"],
+        "grid_bound_ms": k3["grid_f32"]["bound_ms"],
+        "grid_bound_fma_ms": k3["grid_f32"]["bound_fma_ms"],
+        "per": "one 1,024-column slice of the 512^3 grid x 512 depths "
+               "(grid_*: the whole grid; the plain version timed at the "
+               "slice only)",
+        "library_ms": None,
+    }, {
+        "name": "fused_dual_mlp_runs_tf32x3",
+        "route": "cuda",
+        "source": "surs_tpu_torch/csrc/fused_cols_mlp.cu",
+        "replaces": "surs_tpu/ops/fused_mlp.py:728 (float32 weights)",
+        "launches": runs["float32"]["k4_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k4["checks"]
+                           if r["dtype"] == "float32"),
+        "ms": k4["main_f32"]["ms"],
+        "plain_ms": k4["main_f32"]["plain_ms"],
+        "bound_ms": k4["main_f32"]["bound_ms"],
+        "bound_by": k4["main_f32"]["bound_by"],
+        "bound_fma_ms": k4["main_f32"]["bound_fma_ms"],
         "library_ms": None,
     }, {
         "name": "row_gather",

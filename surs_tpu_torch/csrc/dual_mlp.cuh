@@ -1,11 +1,11 @@
 // Device code shared by the fused dual-MLP kernels (K1 in
-// fused_dual_mlp.cu, K3 and K4 in fused_cols_mlp.cu): the reference widths,
-// the packed weight layout, and the float32 FMA design: one 32-row hidden
-// layer with activations in shared memory.
+// fused_dual_mlp.cu, K2 in fused_train_tf32.cu, K3 and K4 in
+// fused_cols_mlp.cu): the reference widths, the packed weight layout, and
+// the float32 K1's FMA design: one 32-row hidden layer with activations
+// in shared memory.
 //
 // A layer's epilogue is a functor `epi(row, col, acc) -> pre-activation`:
-// K1 adds the bias; K3 and K4 also add the per-column feature term,
-// the rounded depth term and the coarse-prediction term.
+// the float32 K1's adds the bias.
 
 #pragma once
 

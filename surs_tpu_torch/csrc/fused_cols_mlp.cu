@@ -25,9 +25,12 @@
 // What bounds it: per depth sample only the hidden chain remains, about
 // 2.75 MFLOP for both MLPs against 8 bytes of output: one dense 512^3 grid
 // (K3) is 370 TFLOP, bound 374 ms by the bf16 tensor cores; one K4 chunk of
-// 32,768 windows is 780.8 GFLOP, bound 0.789 ms. What stands in the way is
-// the weight stream: every tile of rows reads all 2.6 MB of hidden weights
-// of both MLPs from L2.
+// 32,768 windows is 780.8 GFLOP, bound 0.789 ms. In float32 the same work
+// is three TF32 products per product (3xTF32, below): bound 2,242 ms a grid
+// and 4.73 ms a chunk at the TF32 peak (5,522 and 11.65 by float32 FMA).
+// What stands in the way is the weight stream: every tile of rows reads
+// all hidden weights of both MLPs from L2, 2.75 MB in bf16, 11 MB as
+// float32 hi + lo.
 //
 // bf16, the design (one launch of each kernel per chunk of columns):
 //   * cols_terms_bf16_kernel, the pre-pass: the column terms of every
@@ -51,245 +54,52 @@
 //     in registers as layer 3's A; layer 3's epilogue ends in the last
 //     layer's 128-wide dot product, reduced with shuffles. Every epilogue
 //     works on the wgmma accumulators in registers.
-// float32 keeps the first design (a check path only): one block per 32-row
-// tile runs the whole chain with FMA loops, the column terms recomputed
-// per tile on the CUDA cores.
+//
+// float32, the design (3xTF32, as K2 in fused_train_tf32.cu): every
+// operand v is split into hi = tf32_rna(v) and lo = tf32_rna(v - hi),
+// tf32_rna(v) = (bits(v) + 0x1000) & 0xFFFFE000 (ops/fused_mlp.py:
+// tf32_split), and a product a.b becomes lo_a.hi_b + hi_a.lo_b + hi_a.hi_b
+// in float32. The tensor cores add into their accumulator with a
+// truncating alignment, so each 32-k stage is summed into a fresh partial
+// that the CUDA cores add to a float32 sum (layer 2: each 128-k chunk).
+// No activation is rounded between layers: the chain is float32 to about
+// 2^-21 a product, as JAX's compute_dtype=float32.
+//   * cols_terms_tf32x3_kernel, the pre-pass: C as above in 3xTF32 on
+//     mma.sync m16n8k8 (W_feat pre-split into hi and lo by
+//     prepare_cols_weights; x split as its fragments are loaded);
+//   * fused_dual_mlp_{cols,runs}_tf32x3_kernel: the bf16 chain's block
+//     (two consumer warpgroups of 64 rows, a producer warpgroup, a
+//     persistent grid), A from registers (wgmma m64n128k8 tf32 with
+//     register A). A float32 h1 of 128 rows would take 256 KB of shared
+//     memory, so it is never whole: layer 1 runs in four chunks of 128
+//     outputs, each chunk's output (64 values a thread) goes straight into
+//     layer 2 as 128 k of its A, and layer 2's [128, 256] float32 sums live
+//     in shared memory (128 KB, each thread its own 128 values). The A
+//     fragments come from the accumulators without leaving the thread: the
+//     accumulator gives a thread columns 2t and 2t + 1 of each 8-column
+//     block where tf32's A fragment wants k t and t + 4, so every hidden
+//     weight block is packed with its k rows permuted within each 8 (k t
+//     <- row 2t, k t + 4 <- row 2t + 1; ops/fused_mlp.py:TF32_KPERM). The
+//     producer streams the hidden weights of both MLPs as 168 stages an
+//     MLP of [32 k x 128 n] hi then lo (32 KB, 128-byte swizzle) through a
+//     3-slot ring: each weight byte read from L2 feeds 128 rows, 11 MB a
+//     tile. The column terms, depth rows and biases are read through L1.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (ops/cuda_build.py); the wrappers are ops/fused_mlp.py:fused_dual_mlp_cols
-// and fused_dual_mlp_runs (and column_terms, the pre-pass alone).
+// and fused_dual_mlp_runs (and column_terms, either pre-pass alone).
 
 #include "wg_chain.cuh"
 
 namespace {
 
 constexpr int FEAT = 320;         // feature rows of the x block (lr + hr)
-constexpr int ZROW = FEAT;        // depth row of the x block
-constexpr int PROW = FEAT + 1;    // coarse-prediction row (fine MLP)
 constexpr int WIN = 8;            // depths per window (K4)
 // the column terms of one MLP: the outputs of layers 0, 2, 3 and 4
 constexpr int COL0 = 0, COL2 = D0, COL3 = D0 + D2, COL4 = D0 + D2 + D3;
 constexpr int CW = COL4 + 1;      // 1409
 constexpr int CWP = CW + 3;       // 1412: one MLP's terms, 16-byte rows
 constexpr int CSTR = 2 * CWP;     // 2824: one column's terms, both MLPs
-
-// ====================================================== float32 (FMA) ===
-struct ColsArgs {
-  const float* x_lr;   // [n, c_lr]
-  const float* x_hr;   // [n, FEAT - c_lr]
-  int c_lr;
-  const float* kf;     // [n] (K4) or null (K3)
-  const float* zf;     // [z] depth features (K3: zf, K4: zt)
-  int n;               // columns (K3) or windows (K4)
-  int z;               // depths per column (K3) or WIN (K4)
-  int z_tiles;         // K3: tiles per column
-  const float* wlr;
-  const float* blr;
-  const float* whr;
-  const float* bhr;
-  float* out_hr;       // [n, z]
-  float* out_lr;
-};
-
-template <bool RUNS>
-struct Shape {
-  static constexpr int BN = BN32;
-  static constexpr int RPG = RUNS ? WIN : BN;  // tile rows per column
-  static constexpr int G = BN / RPG;           // columns per tile
-  static constexpr size_t SMEM =
-      (size_t)BN * LDP32 * sizeof(float)
-      + (size_t)((G + 2) * CWP + G * FEAT + G + 3 * BN) * 4;
-};
-
-// Per-row epilogue of a layer that reads the input: the column term
-// (bias included), the rounded depth term and the coarse-prediction
-// term (zero in the coarse MLP, whose prediction row is zero padding and
-// whose predc is 0). Everything it reads is in shared memory.
-template <int RPG>
-struct ColsEpi {
-  const float* colb;          // this layer's column terms, row stride CWP
-  const float* wzs;           // the layer's depth-row weights
-  const float* wps;           // its coarse-prediction row
-  const float* zrow;          // [BN] depth feature of each tile row
-  const float* predc;         // [BN] coarse prediction of each tile row
-  __device__ __forceinline__ float operator()(int r, int c, float v) const {
-    v += colb[(r / RPG) * CWP + c];
-    v += zrow[r] * wzs[c];
-    return v + predc[r] * wps[c];
-  }
-};
-
-// The last layer's per-row term: ColsEpi at its one output.
-template <int RPG>
-struct ColsExtra {
-  ColsEpi<RPG> epi;
-  __device__ __forceinline__ float operator()(int r) const {
-    return epi(r, 0, 0.f);
-  }
-};
-
-// colb[g][n] = x_g . W_x[:FEAT, n] (+ kf_g * W_x[ZROW, n]) + b[n] for the
-// outputs n of every input-reading layer, g < G; wzs[n] and wps[n] the
-// depth and coarse-prediction rows, for the epilogues. Threads own
-// outputs, so the weight rows are read coalesced, once per tile; the
-// loop over rows keeps 16 loads from L2 in flight per thread.
-template <int G>
-__device__ void column_terms(const float* xs, const float* kfs, bool runs,
-                             const float* __restrict__ w,
-                             const float* __restrict__ b, float* colb,
-                             float* wzs, float* wps) {
-  for (int n = threadIdx.x; n < CW; n += THREADS) {
-    size_t off;
-    int N, nn, bo;
-    if (n < COL2) { off = OFF_W0X; N = D0; nn = n; bo = OFF_B0; }
-    else if (n < COL3) { off = OFF_W2X; N = D2; nn = n - COL2; bo = OFF_B2; }
-    else if (n < COL4) { off = OFF_W3X; N = D3; nn = n - COL3; bo = OFF_B3; }
-    else { off = OFF_W4X; N = 1; nn = 0; bo = OFF_B4; }
-    const float* wc = w + off + nn;
-    float acc[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = 0.f;
-#pragma unroll 16
-    for (int k = 0; k < FEAT; ++k) {
-      const float wk = wc[(size_t)k * N];
-#pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] = fmaf(xs[g * FEAT + k], wk, acc[g]);
-    }
-    const float wz = wc[(size_t)ZROW * N];
-    wzs[n] = wz;
-    wps[n] = wc[(size_t)PROW * N];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      colb[g * CWP + n] = acc[g] + (runs ? kfs[g] * wz : 0.f) + b[bo + nn];
-  }
-}
-
-// Layer 0: no per-sample product, out = leaky(epi(0)).
-template <typename Epi>
-__device__ void layer0_cols(float* out, Epi epi) {
-  for (int idx = threadIdx.x; idx < BN32 * D0; idx += THREADS) {
-    const int r = idx / D0, c = idx - r * D0;
-    out[r * LDP32 + c] = leaky(epi(r, c, 0.f));
-  }
-  __syncthreads();
-}
-
-// One MLP of the column chain over the tile; pred[r] = sigmoid(logit).
-template <bool RUNS>
-__device__ void mlp_cols(float* P, const float* xs, const float* kfs,
-                         const float* __restrict__ w,
-                         const float* __restrict__ b, float* colb,
-                         float* wzs, float* wps, const float* zrow,
-                         const float* predc, float* pred) {
-  using S = Shape<RUNS>;
-  constexpr int RPG = S::RPG;
-  column_terms<S::G>(xs, kfs, RUNS, w, b, colb, wzs, wps);
-  __syncthreads();
-  auto epi = [&](int col_off) {
-    return ColsEpi<RPG>{colb + col_off, wzs + col_off, wps + col_off, zrow,
-                        predc};
-  };
-  layer0_cols(P, epi(COL0));
-  layer_f32<D1, D0, 0, true>(P, nullptr, w + OFF_W1H, nullptr,
-                             BiasEpi{b + OFF_B1}, P);
-  layer_f32<D2, D1, 0, true>(P, nullptr, w + OFF_W2H, nullptr, epi(COL2), P);
-  layer_f32<D3, D2, 0, true>(P, nullptr, w + OFF_W3H, nullptr, epi(COL3), P);
-  final_layer<float, S::BN, 0>(P, LDP32, (const float*)nullptr, 0,
-                               w + OFF_W4H, (const float*)nullptr,
-                               ColsExtra<RPG>{epi(COL4)}, pred);
-}
-
-template <bool RUNS>
-__device__ void cols_body(const ColsArgs& a) {
-  using S = Shape<RUNS>;
-  constexpr int BN = S::BN, RPG = S::RPG, G = S::G;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* P = reinterpret_cast<float*>(smem);
-  float* colb = P + BN * LDP32;
-  float* wzs = colb + G * CWP;
-  float* wps = wzs + CWP;
-  float* xs = wps + CWP;
-  float* kfs = xs + G * FEAT;
-  float* zrow = kfs + G;
-  float* predc = zrow + BN;
-  float* pred = predc + BN;
-  const int t = threadIdx.x;
-
-  // the tile: K3, depths [z0, z0 + BN) of column c0; K4, windows
-  // [c0, c0 + G), each 8 depths
-  int c0, z0 = 0;
-  if (RUNS) {
-    c0 = blockIdx.x * G;
-  } else {
-    c0 = blockIdx.x / a.z_tiles;
-    z0 = (blockIdx.x - c0 * a.z_tiles) * BN;
-  }
-  const int c_hr = FEAT - a.c_lr;
-  for (int idx = t; idx < G * FEAT; idx += THREADS) {
-    const int g = idx / FEAT, k = idx - g * FEAT, c = c0 + g;
-    float v = 0.f;
-    if (c < a.n)
-      v = k < a.c_lr ? a.x_lr[(size_t)c * a.c_lr + k]
-                     : a.x_hr[(size_t)c * c_hr + (k - a.c_lr)];
-    xs[idx] = v;
-  }
-  if (t < G) kfs[t] = RUNS && c0 + t < a.n ? a.kf[c0 + t] : 0.f;
-  if (t < BN) {
-    const int z = RUNS ? t % RPG : z0 + t;
-    zrow[t] = z < a.z ? a.zf[z] : 0.f;
-    predc[t] = 0.f;
-  }
-  __syncthreads();
-
-  // tile row t -> output element, or -1 past the ragged edge
-  int o = -1;
-  if (t < BN) {
-    const int c = c0 + t / RPG, z = RUNS ? t % RPG : z0 + t;
-    if (c < a.n && z < a.z) o = c * a.z + z;
-  }
-  mlp_cols<RUNS>(P, xs, kfs, a.wlr, a.blr, colb, wzs, wps, zrow, predc,
-                 pred);
-  if (t < BN) {
-    predc[t] = pred[t];
-    if (o >= 0) a.out_lr[o] = pred[t];
-  }
-  __syncthreads();
-  mlp_cols<RUNS>(P, xs, kfs, a.whr, a.bhr, colb, wzs, wps, zrow, predc,
-                 pred);
-  if (o >= 0) a.out_hr[o] = pred[t];
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-    fused_dual_mlp_cols_f32_kernel(ColsArgs a) { cols_body<false>(a); }
-__global__ void __launch_bounds__(THREADS, 1)
-    fused_dual_mlp_runs_f32_kernel(ColsArgs a) { cols_body<true>(a); }
-
-template <bool RUNS>
-int launch_f32(void (*kernel)(ColsArgs), ColsArgs a, void* stream) {
-  using S = Shape<RUNS>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  long long blocks;
-  if (RUNS) {
-    blocks = (a.n + S::G - 1) / S::G;
-  } else {
-    a.z_tiles = (a.z + S::BN - 1) / S::BN;
-    blocks = (long long)a.n * a.z_tiles;
-  }
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)blocks, THREADS, S::SMEM, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-ColsArgs args(const void* x_lr, const void* x_hr, int c_lr, const void* kf,
-              const void* zf, int n, int z, const void* wlr, const void* blr,
-              const void* whr, const void* bhr, void* out_hr, void* out_lr) {
-  return ColsArgs{(const float*)x_lr, (const float*)x_hr, c_lr,
-                  (const float*)kf, (const float*)zf, n, z, 0,
-                  (const float*)wlr, (const float*)blr, (const float*)whr,
-                  (const float*)bhr, (float*)out_hr, (float*)out_lr};
-}
 
 // =========================================== bf16: the column pre-pass ===
 constexpr int TM = 128;                 // columns per block
@@ -456,13 +266,14 @@ template <int G> struct WgSmem {
 };
 
 struct WgArgs {
-  const float* terms;  // [rows, CSTR] column terms (cols_terms_bf16_kernel)
+  const float* terms;  // [rows, CSTR] column terms (the pre-pass)
   const float* zf;     // K3: zf [z]; K4: zt [WIN]
   int n;               // columns (K3) or windows (K4)
   int z;               // K3: depths per column
   int z_tiles;         // K3: tiles per column
   int tiles;
-  const bf16* whid;    // [2, MLP_STAGES, STAGE_ELEMS] repacked W1h..W3h
+  const void* whid;    // bf16 [2, MLP_STAGES, STAGE_ELEMS] repacked W1h..W3h;
+                       // float32 [2, F_MLP_STAGES, F_STAGE]
   const float* cvec;   // [3, CSTR]
   const float* hvec;   // [2, HVEC]
   float* out_hr;
@@ -691,7 +502,8 @@ __device__ __forceinline__ void produce(const WgArgs& a, uint32_t ring0,
     const long long g0 = RUNS ? (long long)tile * G : tile / a.z_tiles;
 #pragma unroll 1
     for (int m = 0; m < 2; ++m) {
-      const bf16* w = a.whid + (size_t)m * MLP_STAGES * STAGE_ELEMS;
+      const bf16* w = static_cast<const bf16*>(a.whid) +
+                      (size_t)m * MLP_STAGES * STAGE_ELEMS;
 #pragma unroll 1
       for (int s = 0; s < MLP_STAGES; ++s, ++i) {
         const int slot = i % SLOTS;
@@ -729,34 +541,44 @@ __device__ __forceinline__ void store_rows(const WgArgs& a, float* out,
   }
 }
 
+// The two rows of a thread (m0 and m0 + 8 of the tile) in `tile`: K3
+// depths zb and zb + 8 of one column, K4 depth gid of two windows.
+template <bool RUNS>
+__device__ __forceinline__ Rows tile_rows(const WgArgs& a, int tile, int m0,
+                                          int gid, int& zb) {
+  constexpr int G = RUNS ? MROWS / WIN : 1;
+  Rows r;
+  zb = 0;
+  if (RUNS) {
+    r.g0 = tile * G + m0 / WIN;             // m0 / 8 = 8 w + 2 q
+    r.g1 = r.g0 + 1;
+    r.c0 = m0 / WIN;
+    r.c1 = r.c0 + 1;
+    r.z0 = r.z1 = a.zf[gid];                // depth index m0 % 8 = gid
+  } else {
+    r.g0 = r.g1 = tile / a.z_tiles;
+    zb = (tile - r.g0 * a.z_tiles) * MROWS + m0;
+    r.c0 = r.c1 = 0;
+    r.z0 = zb < a.z ? a.zf[zb] : 0.f;
+    r.z1 = zb + 8 < a.z ? a.zf[zb + 8] : 0.f;
+  }
+  r.p0 = r.p1 = 0.f;
+  return r;
+}
+
 // The consumers: warpgroup w owns tile rows [64 w, 64 w + 64).
 template <bool RUNS>
 __device__ __forceinline__ void consume(const WgArgs& a, bf16* h1,
                                         const float* cbuf,
                                         const float* consts, Ring ring) {
-  constexpr int G = RUNS ? MROWS / WIN : 1;
   const int t = threadIdx.x;
   const int w = t >> 7, q = (t >> 5) & 3, lane = t & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int m0 = 64 * w + 16 * q + gid;       // rows m0 and m0 + 8
 #pragma unroll 1
   for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
-    Rows r;
-    int zb = 0;
-    if (RUNS) {
-      r.g0 = tile * G + m0 / WIN;             // m0 / 8 = 8 w + 2 q
-      r.g1 = r.g0 + 1;
-      r.c0 = m0 / WIN;
-      r.c1 = r.c0 + 1;
-      r.z0 = r.z1 = a.zf[gid];                // depth index m0 % 8 = gid
-    } else {
-      r.g0 = r.g1 = tile / a.z_tiles;
-      zb = (tile - r.g0 * a.z_tiles) * MROWS + m0;
-      r.c0 = r.c1 = 0;
-      r.z0 = zb < a.z ? a.zf[zb] : 0.f;
-      r.z1 = zb + 8 < a.z ? a.zf[zb + 8] : 0.f;
-    }
-    r.p0 = r.p1 = 0.f;
+    int zb;
+    Rows r = tile_rows<RUNS>(a, tile, m0, gid, zb);
     const float2 lr = mlp_wg<RUNS, false>(a, ring, h1, cbuf, consts, r, w,
                                           m0, tig);
     store_rows<RUNS>(a, a.out_lr, lr, r, zb, gid, tig);
@@ -809,12 +631,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 __global__ void __launch_bounds__(WG_THREADS, 1)
     fused_dual_mlp_runs_wgmma_kernel(WgArgs a) { wg_body<true>(a); }
 
+// A persistent grid of min(tiles, SMs) blocks of `kernel` over the tiles
+// of K3 (128 depths of a column) or K4 (16 windows).
 template <bool RUNS>
-int launch_wg(WgArgs a, void* stream) {
+int launch_chain(void (*kernel)(WgArgs), size_t bytes, WgArgs a,
+                 void* stream) {
   constexpr int G = RUNS ? MROWS / WIN : 1;
-  auto kernel = RUNS ? fused_dual_mlp_runs_wgmma_kernel
-                     : fused_dual_mlp_cols_wgmma_kernel;
-  const size_t bytes = WgSmem<G>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -836,11 +658,490 @@ int launch_wg(WgArgs a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <bool RUNS>
+int launch_wg(WgArgs a, void* stream) {
+  constexpr int G = RUNS ? MROWS / WIN : 1;
+  return launch_chain<RUNS>(RUNS ? fused_dual_mlp_runs_wgmma_kernel
+                                 : fused_dual_mlp_cols_wgmma_kernel,
+                            WgSmem<G>::BYTES, a, stream);
+}
+
+// ============================ float32: the column pre-pass in 3xTF32 ===
+constexpr int PM = 128;                 // columns per block
+constexpr int PN = 64;                  // term outputs per step
+constexpr int PK = 32;                  // k per step
+constexpr int PLDA = FEAT + 4;          // smem row of x (float32): conflict-free
+constexpr int PLDB = PK + 4;            // smem row of a W_feat chunk
+constexpr int PKC = FEAT / PK;          // 10 k-chunks for 64 outputs
+constexpr int PSTEPS = TERMS_N / PN * PKC;  // 450
+constexpr int PB_ELEMS = PN * PLDB;     // one of hi / lo of a chunk
+constexpr size_t PRE_SMEM =
+    (size_t)PM * PLDA * 4 + 2 * 2 * PB_ELEMS * 4 + PM * 4;  // 203,264
+
+__device__ __forceinline__ uint32_t tf32_bits(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+// v -> hi = tf32_rna(v), lo = tf32_rna(v - hi), as tf32 operands
+// (ops/fused_mlp.py:tf32_split)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(v);
+  lo = tf32_bits(v - __uint_as_float(hi));
+}
+
+struct TermsF32Args {
+  const float* x_lr;   // [n, c_lr]
+  const float* x_hr;   // [n, FEAT - c_lr]
+  int c_lr;
+  const float* kf;     // [n] or null
+  int n;
+  const float* wfeat;  // [2, TERMS_N, FEAT]: hi, lo of W_feat transposed
+  const float* cvec;   // [3, CSTR]: depth rows, prediction rows, biases
+  float* terms;        // [ceil(n / PM) * PM, CSTR]
+};
+
+// C[m, o] = x_m . wfeat[o] (+ kf_m * wz[o]) + b[o] in 3xTF32: a block holds
+// 128 columns' features (float32) in shared memory and walks the 2,880
+// outputs 64 at a time, each in 10 k-chunks of 32 whose hi / lo W_feat
+// rows come through a cp.async double buffer; warp (wm, wn) owns 32 rows
+// x 32 outputs as 2 x 4 m16n8k8 tiles, each chunk summed into a fresh
+// partial. Rows past n are computed from zeros and stored: the buffer is
+// padded to whole blocks.
+__global__ void __launch_bounds__(TTHREADS, 1)
+    cols_terms_tf32x3_kernel(TermsF32Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + PM * PLDA;             // [2 buffers][hi, lo][PN][PLDB]
+  float* kfs = Bs + 4 * PB_ELEMS;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long long m0 = (long long)blockIdx.x * PM;
+  const int c_hr = FEAT - a.c_lr;
+
+  auto load_b = [&](int step, int buf) {
+    const int nt = step / PKC, kc = step - nt * PKC;
+    for (int c = t; c < 2 * PN * (PK / 4); c += TTHREADS) {
+      const int h = c / (PN * (PK / 4)), rq = c - h * PN * (PK / 4);
+      const int r = rq / (PK / 4), q = rq - r * (PK / 4);
+      cp_async16(Bs + (2 * buf + h) * PB_ELEMS + r * PLDB + q * 4,
+                 a.wfeat + ((size_t)h * TERMS_N + nt * PN + r) * FEAT +
+                     kc * PK + q * 4);
+    }
+    cp_async_commit();
+  };
+  load_b(0, 0);
+  for (int idx = t; idx < PM * FEAT; idx += TTHREADS) {
+    const int r = idx / FEAT, k = idx - r * FEAT;
+    const long long c = m0 + r;
+    float v = 0.f;
+    if (c < a.n)
+      v = k < a.c_lr ? a.x_lr[c * a.c_lr + k]
+                     : a.x_hr[c * c_hr + (k - a.c_lr)];
+    As[r * PLDA + k] = v;
+  }
+  if (t < PM) kfs[t] = a.kf != nullptr && m0 + t < a.n ? a.kf[m0 + t] : 0.f;
+
+  const float* wz = a.cvec;
+  const float* bias = a.cvec + 2 * CSTR;
+  const int wm = warp & 3, wn = warp >> 2;
+  float acc[2][4][4], part[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll 1
+  for (int step = 0; step < PSTEPS; ++step) {
+    if (step + 1 < PSTEPS) {
+      load_b(step + 1, (step + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int nt = step / PKC, kc = step - nt * PKC;
+    const float* Bh = Bs + 2 * (step & 1) * PB_ELEMS;
+    const float* Bl = Bh + PB_ELEMS;
+#pragma unroll
+    for (int k8 = 0; k8 < PK / 8; ++k8) {
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* p = As + (wm * 32 + mi * 16 + gid) * PLDA + kc * PK +
+                         k8 * 8 + tig;
+        split_tf32(p[0], ah[mi][0], al[mi][0]);
+        split_tf32(p[8 * PLDA], ah[mi][1], al[mi][1]);
+        split_tf32(p[4], ah[mi][2], al[mi][2]);
+        split_tf32(p[8 * PLDA + 4], ah[mi][3], al[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int o = (wn * 32 + ni * 8 + gid) * PLDB + k8 * 8 + tig;
+        bh[ni][0] = __float_as_uint(Bh[o]);
+        bh[ni][1] = __float_as_uint(Bh[o + 4]);
+        bl[ni][0] = __float_as_uint(Bl[o]);
+        bl[ni][1] = __float_as_uint(Bl[o + 4]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          if (k8 == 0) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
+          }
+          // lo.hi + hi.lo + hi.hi: the small terms first
+          mma1688_tf32(part[mi][ni], al[mi], bh[ni]);
+          mma1688_tf32(part[mi][ni], ah[mi], bl[ni]);
+          mma1688_tf32(part[mi][ni], ah[mi], bh[ni]);
+        }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+    if (kc == PKC - 1) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int o = nt * PN + wn * 32 + ni * 8 + 2 * tig;
+          if (o < CSTR) {
+            const float2 wzo = *reinterpret_cast<const float2*>(wz + o);
+            const float2 bo = *reinterpret_cast<const float2*>(bias + o);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = wm * 32 + mi * 16 + gid + 8 * h;
+              float2 v;
+              v.x = acc[mi][ni][2 * h] + kfs[r] * wzo.x + bo.x;
+              v.y = acc[mi][ni][2 * h + 1] + kfs[r] * wzo.y + bo.y;
+              *reinterpret_cast<float2*>(a.terms + (size_t)(m0 + r) * CSTR +
+                                         o) = v;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+        }
+    }
+    __syncthreads();
+  }
+}
+
+// ============================ float32: the hidden chain in 3xTF32 ===
+constexpr int FK = 32;                      // k of a float32 stage
+constexpr int F_TILE = FK * SN;             // [128 n x 32 k]: 4,096 floats
+constexpr int F_STAGE = 2 * F_TILE;         // hi, then lo
+constexpr int F_STAGE_BYTES = F_STAGE * 4;  // 32 KB
+constexpr int F_SLOTS = 3;                  // ring depth
+// stages of one MLP in consumption order (ops/fused_mlp.py:tf32_stages):
+// per 128-output chunk of layer 1 its 32 k-stages, then layer 2's 2 x 4
+// stages of those 128 k; then layer 3's 8
+constexpr int F_N1 = 128;
+constexpr int F_L1_CHUNKS = D1 / F_N1;      // 4
+constexpr int F_L1_KC = D0 / FK;            // 32
+constexpr int F_L2_KC = F_N1 / FK;          // 4 per half of layer 2's outputs
+constexpr int F_L3_KC = D2 / FK;            // 8
+constexpr int F_MLP_STAGES =
+    F_L1_CHUNKS * (F_L1_KC + 2 * F_L2_KC) + F_L3_KC;   // 168
+constexpr int F_SUMS = D2 / 2;              // layer 2 sums a thread: 128
+// shared memory, from a 1,024-byte aligned base: the ring, layer 2's sums
+// ([F_SUMS][CONSUMERS] float32, a thread's own column), the barriers
+constexpr int F_SUM_OFF = F_SLOTS * F_STAGE_BYTES;
+constexpr int F_BAR_OFF = F_SUM_OFF + F_SUMS * CONSUMERS * 4;
+constexpr size_t F_SMEM = F_BAR_OFF + 2 * F_SLOTS * 8 + 1024;
+static_assert(F_SMEM <= 232448, "over a block's 227 KB of shared memory");
+
+using FRing = RingT<F_SLOTS, F_STAGE_BYTES>;
+
+// leaky(acc + column term + z w_z [+ pred w_p]), float32 throughout
+template <bool HR>
+__device__ __forceinline__ float act32(float acc, float c, float z, float wz,
+                                       float p, float wp) {
+  float v = acc + c + z * wz;
+  if (HR) v += p * wp;
+  return leaky(v);
+}
+
+// N values the compiler must treat as written here, so that what is
+// computed from them stays below this point
+template <int N>
+__device__ __forceinline__ void hold(float* v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i]));
+}
+
+// The A fragments of k8 step j from four float32 values: (r0, k t), (r1,
+// k t), (r0, k t + 4), (r1, k t + 4), k t holding physical column 2 t and
+// k t + 4 column 2 t + 1 of the step's 8 (the weights' k permutation).
+__device__ __forceinline__ void a_frag(uint32_t (&ah)[4][4],
+                                       uint32_t (&al)[4][4], int j, float v0,
+                                       float v1, float v2, float v3) {
+  split_tf32(v0, ah[j][0], al[j][0]);
+  split_tf32(v1, ah[j][1], al[j][1]);
+  split_tf32(v2, ah[j][2], al[j][2]);
+  split_tf32(v3, ah[j][3], al[j][3]);
+}
+
+// d (+)= A . B over one [32 k x 128 n] stage at `stage` (hi tile, then lo):
+// per k8 step lo.hi + hi.lo + hi.hi, the small terms first; `accumulate`
+// 0 overwrites d with the first product.
+__device__ __forceinline__ void mma_stage(float (&d)[64],
+                                          const uint32_t (&ah)[4][4],
+                                          const uint32_t (&al)[4][4],
+                                          uint32_t stage, int accumulate) {
+  const uint32_t lo = stage + F_TILE * 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wgmma_rs_tf32(d, al[j], wg_desc(stage + 32 * j, 1024), accumulate | j);
+    wgmma_rs_tf32(d, ah[j], wg_desc(lo + 32 * j, 1024), 1);
+    wgmma_rs_tf32(d, ah[j], wg_desc(stage + 32 * j, 1024), 1);
+  }
+}
+
+// wait for the next stage, run it, wait for the products, release it
+__device__ __forceinline__ void run_stage(FRing& ring, float (&d)[64],
+                                          const uint32_t (&ah)[4][4],
+                                          const uint32_t (&al)[4][4],
+                                          int accumulate) {
+  const int s = ring.wait();
+  wg_fence_acc(d);
+  wg_fence();
+  mma_stage(d, ah, al, ring.addr(s), accumulate);
+  wg_commit();
+  wg_wait<0>();
+  wg_fence_acc(d);
+  ring.release_to(ring.head);
+}
+
+// Layer 0's inputs for one 32-k stage of layer 1: per k8 step j the
+// column terms of the two rows' columns, the depth and prediction rows at
+// physical columns 8 j + 2 t, + 1.
+struct L0Raw {
+  float2 c0[4], c1[4], wz[4], wp[4];
+};
+template <bool RUNS, bool HR>
+__device__ __forceinline__ void load_l0(L0Raw& q, const float* t0,
+                                        const float* t1, const float* wz,
+                                        const float* wp, int tig) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 8 * j + 2 * tig;
+    q.c0[j] = ldg2(t0 + k);
+    q.c1[j] = RUNS ? ldg2(t1 + k) : q.c0[j];
+    q.wz[j] = ldg2(wz + k);
+    q.wp[j] = HR ? ldg2(wp + k) : make_float2(0.f, 0.f);
+  }
+}
+
+// One MLP over the warpgroup's 64 rows; returns the predictions of rows
+// r0 and r0 + 8 (every lane of a quad holds them).
+template <bool RUNS, bool HR>
+__device__ float2 mlp_tf32(const WgArgs& a, FRing& ring, float* sums,
+                           const Rows& r, int tig) {
+  // the MLP's index, opaque to the compiler (as mlp_wg's)
+  int m = HR ? 1 : 0;
+  asm volatile("" : "+r"(m));
+  const float* hv = a.hvec + m * HVEC;         // b1 | w4h
+  const float* wz = a.cvec + m * CWP;          // depth rows, term layout
+  const float* wp = a.cvec + CSTR + m * CWP;   // prediction rows
+  const float* t0 = a.terms + (size_t)r.g0 * CSTR + m * CWP;
+  const float* t1 = RUNS ? a.terms + (size_t)r.g1 * CSTR + m * CWP : t0;
+  float sum[64], d[64];
+  uint32_t ah[4][4], al[4][4];
+
+  // layer 1 in chunks of 128 outputs, each feeding layer 2's sums
+#pragma unroll 1
+  for (int c = 0; c < F_L1_CHUNKS; ++c) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+    L0Raw q;
+    load_l0<RUNS, HR>(q, t0 + COL0, t1 + COL0, wz + COL0, wp + COL0, tig);
+#pragma unroll 1
+    for (int kc = 0; kc < F_L1_KC; ++kc) {
+      // layer 0: leaky(C0 + z w_z0 [+ pred w_p0]), layer 1's A
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        a_frag(ah, al, j,
+               act32<HR>(0.f, q.c0[j].x, r.z0, q.wz[j].x, r.p0, q.wp[j].x),
+               act32<HR>(0.f, q.c1[j].x, r.z1, q.wz[j].x, r.p1, q.wp[j].x),
+               act32<HR>(0.f, q.c0[j].y, r.z0, q.wz[j].y, r.p0, q.wp[j].y),
+               act32<HR>(0.f, q.c1[j].y, r.z1, q.wz[j].y, r.p1, q.wp[j].y));
+      // the next stage's inputs load under this stage's products
+      if (kc + 1 < F_L1_KC) {
+        const int k = COL0 + (kc + 1) * FK;
+        load_l0<RUNS, HR>(q, t0 + k, t1 + k, wz + k, wp + k, tig);
+      }
+      run_stage(ring, d, ah, al, 0);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] += d[i];
+    }
+    // h1 = leaky(sum + b1) for outputs 128 c + 8 i + 2 t (+ 1)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float2 b = ldg2(hv + F_N1 * c + 8 * i + 2 * tig);
+      sum[4 * i] = leaky(sum[4 * i] + b.x);
+      sum[4 * i + 1] = leaky(sum[4 * i + 1] + b.y);
+      sum[4 * i + 2] = leaky(sum[4 * i + 2] + b.x);
+      sum[4 * i + 3] = leaky(sum[4 * i + 3] + b.y);
+    }
+    // layer 2 over these 128 k, for each half of its 256 outputs: a
+    // partial, added to the thread's sums in shared memory
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int kk = 0; kk < F_L2_KC; ++kk) {
+        // split after the previous stage's products: hoisted, the four
+        // stages' fragments would hold 128 registers at once
+        hold<16>(sum + 16 * kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 4 * kk + j;
+          a_frag(ah, al, j, sum[4 * i], sum[4 * i + 2], sum[4 * i + 1],
+                 sum[4 * i + 3]);
+        }
+        run_stage(ring, d, ah, al, kk);
+      }
+      float* p = sums + h * 64 * CONSUMERS;
+      if (c == 0) {
+#pragma unroll
+        for (int v = 0; v < 64; ++v) p[v * CONSUMERS] = d[v];
+      } else {
+#pragma unroll
+        for (int v = 0; v < 64; ++v) p[v * CONSUMERS] += d[v];
+      }
+    }
+  }
+
+  // layer 3: A = leaky(layer 2's sums + column terms ...), k in stages of
+  // 32; sum v = 16 kc + 4 j + e holds output 32 kc + 8 j + 2 t + e % 2 of
+  // row e / 2
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+#pragma unroll 1
+  for (int kc = 0; kc < F_L3_KC; ++kc) {
+    const float* p = sums + 16 * kc * CONSUMERS;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = COL2 + FK * kc + 8 * j + 2 * tig;
+      const float2 ca = ldg2(t0 + n);
+      const float2 cb = RUNS ? ldg2(t1 + n) : ca;
+      const float2 wzv = ldg2(wz + n);
+      const float2 wpv = HR ? ldg2(wp + n) : make_float2(0.f, 0.f);
+      const float* pv = p + 4 * j * CONSUMERS;
+      a_frag(ah, al, j,
+             act32<HR>(pv[0], ca.x, r.z0, wzv.x, r.p0, wpv.x),
+             act32<HR>(pv[2 * CONSUMERS], cb.x, r.z1, wzv.x, r.p1, wpv.x),
+             act32<HR>(pv[CONSUMERS], ca.y, r.z0, wzv.y, r.p0, wpv.y),
+             act32<HR>(pv[3 * CONSUMERS], cb.y, r.z1, wzv.y, r.p1, wpv.y));
+    }
+    run_stage(ring, d, ah, al, 0);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] += d[i];
+  }
+
+  // layer 3's epilogue and the last layer: the 128-wide dot with w4h
+  const float* w4 = hv + D1;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int n = 8 * i + 2 * tig;
+    const float2 ca = ldg2(t0 + COL3 + n);
+    const float2 cb = RUNS ? ldg2(t1 + COL3 + n) : ca;
+    const float2 wzv = ldg2(wz + COL3 + n);
+    const float2 wpv = HR ? ldg2(wp + COL3 + n) : make_float2(0.f, 0.f);
+    const float2 wo = ldg2(w4 + n);
+    s0 += act32<HR>(sum[4 * i], ca.x, r.z0, wzv.x, r.p0, wpv.x) * wo.x;
+    s0 += act32<HR>(sum[4 * i + 1], ca.y, r.z0, wzv.y, r.p0, wpv.y) * wo.y;
+    s1 += act32<HR>(sum[4 * i + 2], cb.x, r.z1, wzv.x, r.p1, wpv.x) * wo.x;
+    s1 += act32<HR>(sum[4 * i + 3], cb.y, r.z1, wzv.y, r.p1, wpv.y) * wo.y;
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  float l0 = s0 + t0[COL4] + r.z0 * wz[COL4];
+  float l1 = s1 + t1[COL4] + r.z1 * wz[COL4];
+  if (HR) {
+    l0 += r.p0 * wp[COL4];
+    l1 += r.p1 * wp[COL4];
+  }
+  return make_float2(1.f / (1.f + expf(-l0)), 1.f / (1.f + expf(-l1)));
+}
+
+// The producer: one thread streams both MLPs' 168 stages for every tile,
+// each slot refilled once all 256 consumer threads have released it.
+__device__ __forceinline__ void produce_f32(const WgArgs& a, uint32_t ring0,
+                                            uint32_t full, uint32_t empty) {
+  uint32_t i = 0;
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+#pragma unroll 1
+    for (int s = 0; s < 2 * F_MLP_STAGES; ++s, ++i) {
+      const int slot = i % F_SLOTS;
+      mbar_wait(empty + 8 * slot, ((i / F_SLOTS) & 1) ^ 1);
+      mbar_arrive_tx(full + 8 * slot, F_STAGE_BYTES);
+      bulk_g2s(ring0 + slot * F_STAGE_BYTES,
+               static_cast<const float*>(a.whid) + (size_t)s * F_STAGE,
+               F_STAGE_BYTES, full + 8 * slot);
+    }
+  }
+}
+
+template <bool RUNS>
+__device__ void f32_body(const WgArgs& a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t full = smem_u32(smem + F_BAR_OFF);
+  const uint32_t empty = full + 8 * F_SLOTS;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < F_SLOTS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warpgroup 2 produces and hands its registers to warpgroups 0 and 1
+  if (t >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (t == CONSUMERS) produce_f32(a, smem_u32(smem), full, empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  FRing ring{smem_u32(smem), full, empty, 0u, 0u};
+  float* sums = reinterpret_cast<float*>(smem + F_SUM_OFF) + t;
+  const int q = (t >> 5) & 3, lane = t & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = 64 * (t >> 7) + 16 * q + gid;  // rows m0 and m0 + 8
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    int zb;
+    Rows r = tile_rows<RUNS>(a, tile, m0, gid, zb);
+    const float2 lr = mlp_tf32<RUNS, false>(a, ring, sums, r, tig);
+    store_rows<RUNS>(a, a.out_lr, lr, r, zb, gid, tig);
+    r.p0 = lr.x;
+    r.p1 = lr.y;
+    const float2 hr = mlp_tf32<RUNS, true>(a, ring, sums, r, tig);
+    store_rows<RUNS>(a, a.out_hr, hr, r, zb, gid, tig);
+  }
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    fused_dual_mlp_cols_tf32x3_kernel(WgArgs a) { f32_body<false>(a); }
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    fused_dual_mlp_runs_tf32x3_kernel(WgArgs a) { f32_body<true>(a); }
+
 WgArgs wg_args(const void* terms, const void* zf, int n, int z,
                const void* whid, const void* cvec, const void* hvec,
                void* out_hr, void* out_lr) {
-  return WgArgs{(const float*)terms, (const float*)zf, n, z, 0, 0,
-                (const bf16*)whid, (const float*)cvec, (const float*)hvec,
+  return WgArgs{(const float*)terms, (const float*)zf, n, z, 0, 0, whid,
+                (const float*)cvec, (const float*)hvec,
                 (float*)out_hr, (float*)out_lr};
 }
 
@@ -887,31 +1188,47 @@ int surs_fused_dual_mlp_runs_wgmma(const void* terms, const void* zt, int nr,
       wg_args(terms, zt, nr, WIN, whid, cvec, hvec, out_hr, out_lr), stream);
 }
 
-// Launch K3 (float32) on `stream`; returns cudaGetLastError() (0 on
-// success). x_lr [ncol, c_lr], x_hr [ncol, 320 - c_lr], zf [z] float32;
-// packed float32 weights and biases; out_* [ncol, z] float32.
-int surs_fused_dual_mlp_cols_f32(const void* x_lr, const void* x_hr,
-                                 int c_lr, const void* zf, int ncol, int z,
-                                 const void* wlr, const void* blr,
-                                 const void* whr, const void* bhr,
-                                 void* out_hr, void* out_lr, void* stream) {
-  return launch_f32<false>(
-      fused_dual_mlp_cols_f32_kernel,
-      args(x_lr, x_hr, c_lr, nullptr, zf, ncol, z, wlr, blr, whr, bhr,
-           out_hr, out_lr), stream);
+// The float32 column-term pre-pass (3xTF32) on `stream`, as
+// surs_cols_terms_bf16 but wfeat [2, 2880, 320] float32: hi, then lo.
+int surs_cols_terms_tf32x3(const void* x_lr, const void* x_hr, int c_lr,
+                           const void* kf, int n, const void* wfeat,
+                           const void* cvec, void* terms, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      cols_terms_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)PRE_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + PM - 1) / PM;
+  TermsF32Args a{(const float*)x_lr, (const float*)x_hr, c_lr,
+                 (const float*)kf, n, (const float*)wfeat,
+                 (const float*)cvec, (float*)terms};
+  cols_terms_tf32x3_kernel<<<blocks, TTHREADS, PRE_SMEM,
+                             (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// Launch K4 (float32): x_lr [nr, c_lr], x_hr [nr, 320 - c_lr], kf [nr],
-// zt [8] float32; weights as K3; out_* [nr, 8] float32.
-int surs_fused_dual_mlp_runs_f32(const void* x_lr, const void* x_hr,
-                                 int c_lr, const void* kf, const void* zt,
-                                 int nr, const void* wlr, const void* blr,
-                                 const void* whr, const void* bhr,
-                                 void* out_hr, void* out_lr, void* stream) {
-  return launch_f32<true>(
-      fused_dual_mlp_runs_f32_kernel,
-      args(x_lr, x_hr, c_lr, kf, zt, nr, WIN, wlr, blr, whr, bhr, out_hr,
-           out_lr), stream);
+// Launch K3 (float32, 3xTF32) on `stream` over the terms of ncol columns,
+// as surs_fused_dual_mlp_cols_wgmma but whid [2, 168, 8192] float32 (hi
+// and lo stages, ops/fused_mlp.py:prepare_cols_weights).
+int surs_fused_dual_mlp_cols_tf32x3(const void* terms, const void* zf,
+                                    int ncol, int z, const void* whid,
+                                    const void* cvec, const void* hvec,
+                                    void* out_hr, void* out_lr,
+                                    void* stream) {
+  return launch_chain<false>(
+      fused_dual_mlp_cols_tf32x3_kernel, F_SMEM,
+      wg_args(terms, zf, ncol, z, whid, cvec, hvec, out_hr, out_lr), stream);
+}
+
+// Launch K4 (float32, 3xTF32) over the terms of nr windows: zt [8];
+// out_* [nr, 8].
+int surs_fused_dual_mlp_runs_tf32x3(const void* terms, const void* zt,
+                                    int nr, const void* whid,
+                                    const void* cvec, const void* hvec,
+                                    void* out_hr, void* out_lr,
+                                    void* stream) {
+  return launch_chain<true>(
+      fused_dual_mlp_runs_tf32x3_kernel, F_SMEM,
+      wg_args(terms, zt, nr, WIN, whid, cvec, hvec, out_hr, out_lr), stream);
 }
 
 const char* surs_cuda_error_string(int code) {

@@ -3,8 +3,9 @@
 // (fused_train_tf32.cu) and K5's loop variant (row_gather.cu): mbarriers,
 // bulk copies from global to shared memory and back, cp.async, the
 // warpgroup MMA (wgmma) m64n128k16 bf16 -> float32 with A from registers
-// or from shared memory, m64n128k8 tf32 and m64n64k16 bf16 with both from
-// shared memory, its shared-memory descriptor, and mma.sync m16n8k16.
+// or from shared memory, m64n128k8 tf32 likewise, m64n64k16 bf16 with
+// both from shared memory, its shared-memory descriptor, and mma.sync
+// m16n8k16 bf16 and m16n8k8 tf32.
 // Inline PTX only: no tensor maps, no -lcuda.
 
 #pragma once
@@ -209,6 +210,22 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// The same with A from registers: the m16n8k8 tf32 A fragment of each
+// warp's 16 rows, registers {r0 k, r0+8 k, r0 k+4, r0+8 k+4}, r0 = 16 w +
+// lane / 4, k = lane % 4.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SURS_WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : SURS_WG_D64_OUT
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
 #define SURS_WG_D32                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -242,6 +259,19 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[16 x 8] += a[16 x 8] . b[8 x 8], tf32 in, float32 accumulate: a
+// {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}, b {(k t, n g), (k t+4, n g)},
+// g = lane / 4, t = lane % 4
+__device__ __forceinline__ void mma1688_tf32(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

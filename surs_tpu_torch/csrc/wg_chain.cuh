@@ -1,5 +1,6 @@
 // The wgmma chain shared by the bf16 K1 (fused_dual_mlp.cu) and the bf16
-// K3/K4 (fused_cols_mlp.cu): a persistent block of two consumer
+// K3/K4 (fused_cols_mlp.cu), whose ring the float32 K3/K4 share too: a
+// persistent block of two consumer
 // warpgroups (64 rows each, a tile of 128 rows) and one producer
 // warpgroup that streams weights in 16 KB stages through a ring in
 // shared memory; layer 1's output h1 [128, 512] bf16 in shared memory
@@ -40,9 +41,9 @@ __device__ __forceinline__ int h1_index(int m, int k) {
          ((((k >> 3) & 7) ^ (m & 7)) << 3) + (k & 7);
 }
 
-// consumer side of a ring of NSLOTS stages: stage counter `head`,
-// released up to `tail`
-template <int NSLOTS>
+// consumer side of a ring of NSLOTS stages of BYTES each: stage counter
+// `head`, released up to `tail`
+template <int NSLOTS, int BYTES = STAGE_BYTES>
 struct RingT {
   uint32_t slots, full, empty;   // shared addresses of slot 0 and barriers
   uint32_t head, tail;
@@ -56,7 +57,7 @@ struct RingT {
     for (; tail < h; ++tail) mbar_arrive(empty + 8 * (tail % NSLOTS));
   }
   __device__ __forceinline__ uint32_t addr(int slot) const {
-    return slots + slot * STAGE_BYTES;
+    return slots + slot * BYTES;
   }
   // B of k16 step j of a [64 k x 128 n] stage
   __device__ __forceinline__ uint64_t desc_b(int slot, int j) const {

@@ -25,12 +25,16 @@ chain of the TPU's ``_cols_chain``: every point of a grid column shares
 its sampled features, so each input-reading layer takes a per-column
 term once and a rank-1 depth term per sample; K3 expands one column over
 Z depths, K4 one 8-deep window per row of ``x`` at its own depth offset
-``kf``. Their CUDA source is ``csrc/fused_cols_mlp.cu``. In bf16 each
-runs as two kernels per chunk of columns: a pre-pass writes the column
-terms (``column_terms``), then the hidden chain runs on wgmma over
-weights that ``prepare_cols_weights`` repacks into ring stages
-(``hidden_stages``, ``stage_index``); in float32 one FMA kernel reads
-K1's packing.
+``kf``. Their CUDA source is ``csrc/fused_cols_mlp.cu``. Each runs as
+two kernels per chunk of columns: a pre-pass writes the column terms
+(``column_terms``), then the hidden chain runs on wgmma over weights that
+``prepare_cols_weights`` repacks into ring stages. In bf16 the stages are
+``hidden_stages`` in the layout of ``stage_index`` (``ColsPacked``); in
+float32 the kernels are float32-accurate 3xTF32 as K2, every weight
+split into TF32 hi and lo (``ColsPackedTF32``: ``tf32_stages`` in K2's
+tile layout, k rows permuted by ``TF32_KPERM``), and
+``fused_dual_mlp_cols_tf32x3_ref`` / ``fused_dual_mlp_runs_tf32x3_ref``
+compose the plain versions of their arithmetic.
 
 ``prepare_fused_weights`` packs each MLP's weights into one flat buffer
 in the compute dtype, each layer split into the row block that
@@ -616,14 +620,25 @@ class ColsPacked(NamedTuple):
     whid: torch.Tensor    # [2, 84, 8192] W1h, W2h, W3h in ring stages
 
 
+class ColsPackedTF32(NamedTuple):
+    """The float32 (3xTF32) K3/K4's buffers, built from K1's packing:
+    every weight on the tensor cores split by ``tf32_split``."""
+    wfeat: torch.Tensor   # [2, TERMS_ROWS, FEAT] float32: hi, lo of W_feat^T
+    cvec: torch.Tensor    # [3, TERMS_COLS] float32, as ColsPacked's
+    hvec: torch.Tensor    # [2, 640] float32, as ColsPacked's
+    whid: torch.Tensor    # [2, 168, 8192] float32: per MLP the tf32_stages,
+                          # each hi [128 n x 32 k] then lo, K2's tile layout
+
+
 class ColsWeights(NamedTuple):
     """Weights of the column kernels: K1's packing, whose x block already
     holds every row they read (features, then the depth row, then the
-    coarse-prediction row), the (C_lr, C_hr) feature split, and the bf16
-    kernels' repacking (None unless the widths are the kernel's)."""
+    coarse-prediction row), the (C_lr, C_hr) feature split, and the
+    kernels' repacking at the kernel's widths (None otherwise):
+    ``ColsPacked`` in bf16, ``ColsPackedTF32`` in float32."""
     fw: FusedWeights
     split: Tuple[int, int]
-    packed: Optional[ColsPacked] = None
+    packed: Optional[Tuple] = None
 
 
 def hidden_stages() -> List[Tuple[int, int, int]]:
@@ -707,6 +722,70 @@ def unpack_hidden(stages: torch.Tensor):
     d = KERNEL_DIMS_LR
     return unpack_stages(stages, _hidden_plan(),
                          {i: (d[i], d[i + 1]) for i in (1, 2, 3)})
+
+
+# The float32 K3/K4 (3xTF32) stream each MLP's W1h, W2h, W3h as stages of
+# [32 k x 128 n], hi then lo, each in K2's tile layout of the [128 n x 32 k]
+# block (``tile_index``). Its A operands come from wgmma accumulators in
+# registers, which hold columns 2t and 2t + 1 of each 8 where tf32's A
+# fragment takes k t and t + 4: within every 8 k rows, stage row k holds
+# weight row TF32_KPERM[k].
+TF32_STAGE_K = 32
+TF32_N1 = 128                   # layer-1 outputs per chunk (feeding layer 2)
+TF32_KPERM = (0, 2, 4, 6, 1, 3, 5, 7)
+TF32_STAGE = 2 * TF32_STAGE_K * STAGE_N     # floats: hi, then lo
+
+
+def tf32_stages() -> List[Tuple[int, int, int]]:
+    """(layer, k0, n0) of the 168 stages of one MLP's hidden weights in
+    the order the float32 K3/K4 consume them: per 128-output chunk c of
+    layer 1 its 32 k-stages, then layer 2's stages over those 128 k (k0 =
+    128 c + 32 kk) for each half of its 256 outputs; then layer 3's 8."""
+    d = KERNEL_DIMS_LR
+    out = []
+    for c in range(d[2] // TF32_N1):
+        out += [(1, k0, c * TF32_N1) for k0 in range(0, d[1], TF32_STAGE_K)]
+        out += [(2, c * TF32_N1 + k0, n0) for n0 in range(0, d[3], STAGE_N)
+                for k0 in range(0, TF32_N1, TF32_STAGE_K)]
+    out += [(3, k0, 0) for k0 in range(0, d[3], TF32_STAGE_K)]
+    return out
+
+
+def _tf32_rows(k0: int, device=None) -> torch.Tensor:
+    """The weight rows of a stage's 32 k rows (``TF32_KPERM``)."""
+    k = torch.arange(TF32_STAGE_K, device=device)
+    perm = torch.tensor(TF32_KPERM, device=device)
+    return k0 + 8 * (k // 8) + perm[k % 8]
+
+
+def _pack_hidden_tf32(w: torch.Tensor, spec: MLPSpec, xk: int
+                      ) -> torch.Tensor:
+    """One float32 MLP's W1h, W2h, W3h as [168, TF32_STAGE] stages."""
+    split = {i: tf32_split(b)
+             for i, b in _hidden_blocks(w, spec, xk).items()}
+    idx = tile_index(STAGE_N, TF32_STAGE_K, w.device)
+    return torch.stack([
+        torch.cat([part[_tf32_rows(k0, w.device), n0:n0 + STAGE_N].t()
+                   .reshape(-1)[idx] for part in split[layer]])
+        for layer, k0, n0 in tf32_stages()])
+
+
+def unpack_hidden_tf32(stages: torch.Tensor):
+    """Inverse of the float32 stage packing: {1: W1h, 2: W2h, 3: W3h},
+    each [2, in, out] (hi, lo), from one MLP's [168, TF32_STAGE] stages;
+    elements no stage covers stay NaN."""
+    d = KERNEL_DIMS_LR
+    out = {i: stages.new_full((2, d[i], d[i + 1]), float("nan"))
+           for i in (1, 2, 3)}
+    idx = tile_index(STAGE_N, TF32_STAGE_K, stages.device)
+    for s, (layer, k0, n0) in enumerate(tf32_stages()):
+        rows = _tf32_rows(k0, stages.device)
+        for h, part in enumerate(stages[s].view(2, -1)):
+            block = torch.empty_like(part)
+            block[idx] = part
+            out[layer][h, rows, n0:n0 + STAGE_N] = block.view(
+                STAGE_N, TF32_STAGE_K).t()
+    return out
 
 
 # ---------------------------------------------------------- bf16 K1 -----
@@ -823,16 +902,24 @@ def _pack_terms(w, b, spec: MLPSpec, xk: int):
     return wf, cv, hv
 
 
-def _pack_cols(fw: FusedWeights) -> ColsPacked:
+def _pack_cols(fw: FusedWeights):
+    """ColsPacked (bf16) or ColsPackedTF32 (float32) of ``fw``."""
     lr = _pack_terms(fw.w_lr, fw.b_lr, fw.spec_lr, fw.xk)
     hr = _pack_terms(fw.w_hr, fw.b_hr, fw.spec_hr, fw.xk)
     wfeat = torch.cat([lr[0], hr[0], lr[0].new_zeros(
         (TERMS_ROWS - TERMS_COLS, FEAT))])
+    vecs = (torch.cat([lr[1], hr[1]], 1).contiguous(),
+            torch.stack([lr[2], hr[2]]).contiguous())
+    mlps = ((fw.w_lr, fw.spec_lr), (fw.w_hr, fw.spec_hr))
+    if fw.w_lr.dtype == torch.float32:
+        return ColsPackedTF32(
+            torch.stack(tf32_split(wfeat)).contiguous(), *vecs,
+            torch.stack([_pack_hidden_tf32(w, spec, fw.xk)
+                         for w, spec in mlps]).contiguous())
     return ColsPacked(
-        wfeat.contiguous(), torch.cat([lr[1], hr[1]], 1).contiguous(),
-        torch.stack([lr[2], hr[2]]).contiguous(),
-        torch.stack([_pack_hidden(fw.w_lr, fw.spec_lr, fw.xk),
-                     _pack_hidden(fw.w_hr, fw.spec_hr, fw.xk)]).contiguous())
+        wfeat.contiguous(), *vecs,
+        torch.stack([_pack_hidden(w, spec, fw.xk)
+                     for w, spec in mlps]).contiguous())
 
 
 def _kernel_widths(fw: FusedWeights) -> bool:
@@ -847,8 +934,8 @@ def prepare_cols_weights(mlp_lr, mlp_hr, hg_dim: int = 256,
     """K3/K4 weights (``surs_tpu/ops/fused_mlp.py:prepare_cols_weights``):
     lr features (``hg_dim``) | hr features | depth, in K1's packing (the
     TPU's ``base_split`` only gave each segment its own 128-lane block),
-    and, at the kernel's widths, the bf16 kernels' repacking of the same
-    weights (``ColsPacked``, in ``dtype`` too)."""
+    and, at the kernel's widths, the kernels' repacking of the same
+    weights: ``ColsPacked`` in bf16, ``ColsPackedTF32`` in float32."""
     fw = prepare_fused_weights(mlp_lr, mlp_hr, dtype)
     c_hr = fw.spec_lr.dims[0] - 1 - hg_dim
     if hg_dim <= 0 or c_hr <= 0:
@@ -862,36 +949,58 @@ def _fw_of(w) -> FusedWeights:
     return w.fw if isinstance(w, ColsWeights) else w
 
 
+def tf32x3_matmul_ref(a: torch.Tensor, w_hi: torch.Tensor,
+                      w_lo: torch.Tensor) -> torch.Tensor:
+    """a [M, K] float32 times W [K, N] given W's ``tf32_split``, as the
+    float32 K3/K4 multiply: lo_a . hi_w + hi_a . lo_w + hi_a . hi_w."""
+    a_hi, a_lo = tf32_split(a)
+    return a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi
+
+
 def column_terms_ref(x_lr: torch.Tensor, x_hr: torch.Tensor, kf,
                      cw: ColsWeights) -> torch.Tensor:
     """Plain PyTorch version of the column-term pre-pass: the features
-    rounded to the compute dtype, times W_feat, plus ``kf * w_z`` (kf
-    [n] or None) and the bias, in float32: [n, TERMS_COLS], the terms of
-    layers 0, 2, 3, 4 of each MLP at ``TERM_LAYERS`` (pads 0)."""
+    times W_feat, plus ``kf * w_z`` (kf [n] or None) and the bias, in
+    float32: [n, TERMS_COLS], the terms of layers 0, 2, 3, 4 of each MLP
+    at ``TERM_LAYERS`` (pads 0). bf16 (``ColsPacked``): the features
+    rounded to bf16 first; float32 (``ColsPackedTF32``): the product in
+    3xTF32 (:func:`tf32x3_matmul_ref`)."""
     pk = cw.packed
-    x = torch.cat([x_lr.float(), x_hr.float()], 1).to(pk.wfeat.dtype).float()
-    out = x @ pk.wfeat[:TERMS_COLS].float().t() + pk.cvec[2]
+    x = torch.cat([x_lr.float(), x_hr.float()], 1)
+    if isinstance(pk, ColsPackedTF32):
+        out = tf32x3_matmul_ref(x, *(w[:TERMS_COLS].t() for w in pk.wfeat))
+    else:
+        x = x.to(pk.wfeat.dtype).float()
+        out = x @ pk.wfeat[:TERMS_COLS].float().t()
+    out = out + pk.cvec[2]
     if kf is not None:
         out = out + kf.float()[:, None] * pk.cvec[0]
     return out
 
 
 def chunk_plan(n: int, chunk: int = CHUNK_COLS) -> List[Tuple[int, int]]:
-    """[start, stop) of each chunk of ``n`` columns the bf16 K3/K4
-    wrappers launch on, in order: every column once, the last chunk
-    ragged."""
+    """[start, stop) of each chunk of ``n`` columns the K3/K4 wrappers
+    launch on (bf16 and float32), in order: every column once, the last
+    chunk ragged."""
     return [(s, min(s + chunk, n)) for s in range(0, n, chunk)]
 
 
-def _check_packed(cw) -> ColsPacked:
+def _check_packed(cw):
     if not isinstance(cw, ColsWeights) or cw.packed is None:
-        raise ValueError("the bf16 column kernels take prepare_cols_weights' "
+        raise ValueError("the column kernels take prepare_cols_weights' "
                          "ColsWeights at the kernel's widths")
     return cw.packed
 
 
-def _launch_terms(lib, x_lr, x_hr, kf, pk: ColsPacked, terms, stream):
-    rc = lib.surs_cols_terms_bf16(
+def _entries(pk) -> Tuple[str, str]:
+    """(pre-pass, chain) name suffixes of a packing's kernels."""
+    if isinstance(pk, ColsPackedTF32):
+        return "tf32x3", "tf32x3"
+    return "bf16", "wgmma"
+
+
+def _launch_terms(lib, x_lr, x_hr, kf, pk, terms, stream):
+    rc = getattr(lib, f"surs_cols_terms_{_entries(pk)[0]}")(
         x_lr.data_ptr(), x_hr.data_ptr(), x_lr.shape[1],
         None if kf is None else kf.data_ptr(), x_lr.shape[0],
         pk.wfeat.data_ptr(), pk.cvec.data_ptr(), terms.data_ptr(), stream)
@@ -907,9 +1016,10 @@ def _terms_buffer(rows: int, dev) -> torch.Tensor:
 
 def column_terms(x_lr: torch.Tensor, x_hr: torch.Tensor, kf,
                  cw: ColsWeights) -> torch.Tensor:
-    """The column-term pre-pass of the bf16 K3/K4 alone (x_lr [n, C_lr],
-    x_hr [n, C_hr], kf [n] or None, float32) -> [n, TERMS_COLS] float32.
-    CUDA tensors launch ``cols_terms_bf16_kernel`` (counted in
+    """The column-term pre-pass of K3/K4 alone (x_lr [n, C_lr], x_hr
+    [n, C_hr], kf [n] or None, float32) -> [n, TERMS_COLS] float32. CUDA
+    tensors launch ``cols_terms_bf16_kernel`` or, for the float32
+    packing, ``cols_terms_tf32x3_kernel`` (counted in
     ``column_terms.launches``); CPU tensors take
     :func:`column_terms_ref`."""
     pk = _check_packed(cw)
@@ -917,9 +1027,6 @@ def column_terms(x_lr: torch.Tensor, x_hr: torch.Tensor, kf,
         return column_terms_ref(x_lr, x_hr, kf, cw)
     ins = [x_lr, x_hr] + ([] if kf is None else [kf])
     _check_kernel_inputs(ins, cw.fw)
-    if pk.wfeat.dtype != torch.bfloat16:
-        raise ValueError("the column-term pre-pass is built for bf16 "
-                         f"weights, got {pk.wfeat.dtype}")
     terms = _terms_buffer(x_lr.shape[0], x_lr.device)
     if x_lr.shape[0]:
         lib = _kernel_lib("fused_cols_mlp")
@@ -987,10 +1094,12 @@ def _dual_cols_ref(x_lr, x_hr, kf, zf, fw: FusedWeights):
     return pred_hr.view(G, Z), pred_lr.view(G, Z)
 
 
-def _chunked(x_lr, x_hr, kf, zf, fw):
+def _chunked(x_lr, x_hr, kf, zf, dual):
+    """``dual(x_lr, x_hr, kf, zf)`` over chunks of about _REF_CHUNK_ROWS
+    points."""
     step = max(1, _REF_CHUNK_ROWS // max(zf.shape[0], 1))
-    outs = [_dual_cols_ref(x_lr[s:s + step], x_hr[s:s + step],
-                           None if kf is None else kf[s:s + step], zf, fw)
+    outs = [dual(x_lr[s:s + step], x_hr[s:s + step],
+                 None if kf is None else kf[s:s + step], zf)
             for s in range(0, x_lr.shape[0], step)]
     if not outs:
         empty = x_lr.new_zeros((0, zf.shape[0]), dtype=torch.float32)
@@ -1007,7 +1116,8 @@ def fused_dual_mlp_cols_ref(x_lr: torch.Tensor, x_hr: torch.Tensor,
     x_lr [Ncol, C_lr], x_hr [Ncol, C_hr], zf [Z], ``fw`` FusedWeights or
     ColsWeights -> (pred_hr [Ncol, Z], pred_lr [Ncol, Z]) float32, in
     column chunks."""
-    return _chunked(x_lr, x_hr, None, zf, _fw_of(fw))
+    return _chunked(x_lr, x_hr, None, zf,
+                    functools.partial(_dual_cols_ref, fw=_fw_of(fw)))
 
 
 def fused_dual_mlp_runs_ref(x_lr: torch.Tensor, x_hr: torch.Tensor,
@@ -1017,7 +1127,81 @@ def fused_dual_mlp_runs_ref(x_lr: torch.Tensor, x_hr: torch.Tensor,
     feature kf[w] + zt[t], with ``kf * w_z`` in float32 (unrounded) and
     ``zt * w_z`` rounded as K3's depth term. x_lr [NR, C_lr], x_hr
     [NR, C_hr], kf [NR], zt [zb] -> ([NR, zb], [NR, zb]) float32."""
-    return _chunked(x_lr, x_hr, kf, zt, _fw_of(fw))
+    return _chunked(x_lr, x_hr, kf, zt,
+                    functools.partial(_dual_cols_ref, fw=_fw_of(fw)))
+
+
+def _cols_chain_tf32x3_ref(terms, zrow, rep: int, hid, pk, m: int,
+                           pred=None) -> torch.Tensor:
+    """The float32 K3/K4's chain of MLP ``m`` (0 coarse, 1 fine) over G
+    columns' (windows') terms [G, TERMS_COLS], each expanded to ``rep``
+    rows at depth features zrow [G * rep], pred [G * rep] or None, hid
+    {layer: (hi, lo) [in, out]} -> logit [G * rep]."""
+    o = m * TERMS_MLP
+    t = terms[:, o:o + TERMS_MLP].repeat_interleave(rep, 0)
+    wz, wp = pk.cvec[0, o:o + TERMS_MLP], pk.cvec[1, o:o + TERMS_MLP]
+    d = KERNEL_DIMS_LR
+
+    def x_term(layer):
+        off = dict(TERM_LAYERS)[layer]
+        n = d[layer + 1]
+        v = t[:, off:off + n] + zrow[:, None] * wz[off:off + n]
+        return v if pred is None else v + pred[:, None] * wp[off:off + n]
+
+    def leaky(v):
+        return torch.where(v >= 0, v, 0.01 * v)
+
+    h = leaky(x_term(0))
+    h = leaky(tf32x3_matmul_ref(h, *hid[1]) + pk.hvec[m, :d[2]])
+    h = leaky(tf32x3_matmul_ref(h, *hid[2]) + x_term(2))
+    h = leaky(tf32x3_matmul_ref(h, *hid[3]) + x_term(3))
+    return h @ pk.hvec[m, d[2]:] + x_term(4)[:, 0]
+
+
+def _dual_cols_tf32x3_ref(x_lr, x_hr, kf, zf, cw, hid):
+    pk = cw.packed
+    G, Z = x_lr.shape[0], zf.shape[0]
+    terms = column_terms_ref(x_lr, x_hr, kf, cw)
+    zrow = zf.float().repeat(G)
+    pred_lr = torch.sigmoid(_cols_chain_tf32x3_ref(terms, zrow, Z, hid[0],
+                                                   pk, 0))
+    pred_hr = torch.sigmoid(_cols_chain_tf32x3_ref(terms, zrow, Z, hid[1],
+                                                   pk, 1, pred=pred_lr))
+    return pred_hr.view(G, Z), pred_lr.view(G, Z)
+
+
+def _tf32x3_chunked(x_lr, x_hr, kf, zf, cw):
+    pk = _check_packed(cw)
+    if not isinstance(pk, ColsPackedTF32):
+        raise ValueError("the 3xTF32 plain versions take the float32 "
+                         "ColsWeights of prepare_cols_weights")
+    hid = [unpack_hidden_tf32(pk.whid[m]) for m in (0, 1)]
+    return _chunked(x_lr, x_hr, kf, zf, functools.partial(
+        _dual_cols_tf32x3_ref, cw=cw, hid=hid))
+
+
+def fused_dual_mlp_cols_tf32x3_ref(x_lr: torch.Tensor, x_hr: torch.Tensor,
+                                   zf: torch.Tensor, cw: ColsWeights
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 K3's arithmetic from the plain versions of its
+    kernels: the pre-pass in 3xTF32 (:func:`column_terms_ref`), then per
+    MLP layer 0 from the terms, layers 1-3 as 3xTF32 products
+    (:func:`tf32x3_matmul_ref`) on the packing's own hi / lo weights
+    (:func:`unpack_hidden_tf32`), the last layer in float32, nothing
+    rounded between layers. The float32 ColsWeights -> (pred_hr [Ncol,
+    Z], pred_lr [Ncol, Z])."""
+    return _tf32x3_chunked(x_lr, x_hr, None, zf, cw)
+
+
+def fused_dual_mlp_runs_tf32x3_ref(x_lr: torch.Tensor, x_hr: torch.Tensor,
+                                   kf: torch.Tensor, zt: torch.Tensor,
+                                   cw: ColsWeights
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 K4's arithmetic, as
+    :func:`fused_dual_mlp_cols_tf32x3_ref` with ``kf * w_z`` in the
+    column terms: window w, depth t at kf[w] + zt[t] -> ([NR, zb],
+    [NR, zb])."""
+    return _tf32x3_chunked(x_lr, x_hr, kf, zt, cw)
 
 
 def _check_cols_inputs(x_lr, x_hr, fw: FusedWeights, depth_shapes) -> bool:
@@ -1042,9 +1226,10 @@ def _check_cols_inputs(x_lr, x_hr, fw: FusedWeights, depth_shapes) -> bool:
 
 
 def _cols_wgmma(wrapper, x_lr, x_hr, kf, zf, cw, z: int, launch):
-    """The bf16 K3/K4: per chunk of columns, the pre-pass into one reused
-    column-term buffer, then the chain kernel (``launch(lib, terms, s, e,
-    out_hr, out_lr, stream)``); one count on ``wrapper`` per call."""
+    """K3/K4 on the card: per chunk of columns, the pre-pass into one
+    reused column-term buffer, then the chain kernel (``launch(lib,
+    terms, s, e, out_hr, out_lr, stream)``); one count on ``wrapper`` per
+    call."""
     pk = _check_packed(cw)
     n, dev = x_lr.shape[0], x_lr.device
     out_hr = torch.empty((n, z), dtype=torch.float32, device=dev)
@@ -1074,26 +1259,23 @@ def fused_dual_mlp_cols(x_lr: torch.Tensor, x_hr: torch.Tensor,
     [Ncol, C_lr], x_hr [Ncol, C_hr] per-column features, zf [Z] the
     shared depth features -> (pred_hr [Ncol, Z], pred_lr [Ncol, Z])
     float32, the [column, depth] volume layout. Any Z. ``fw``: the
-    ColsWeights of :func:`prepare_cols_weights` (or, float32 and CPU
-    only, their FusedWeights). CUDA tensors launch kernel K3 (bf16: the
-    pre-pass and the wgmma chain per chunk of ``CHUNK_COLS`` columns;
-    counted once per call in ``fused_dual_mlp_cols.launches``); CPU
+    ColsWeights of :func:`prepare_cols_weights` (or, CPU only, their
+    FusedWeights). CUDA tensors launch kernel K3: per chunk of
+    ``CHUNK_COLS`` columns the pre-pass and the wgmma chain, in bf16 or
+    (the float32 packing) in 3xTF32, counted once per call in
+    ``fused_dual_mlp_cols.launches``; without the packing they raise. CPU
     tensors take :func:`fused_dual_mlp_cols_ref`; anything else
     raises."""
     w = _fw_of(fw)
     if _check_cols_inputs(x_lr, x_hr, w, [(zf, (zf.shape[0],))]):
         return fused_dual_mlp_cols_ref(x_lr, x_hr, zf, w)
     _check_kernel_inputs([x_lr, x_hr, zf], w)
-    ncol, z = x_lr.shape[0], zf.shape[0]
-    if w.w_lr.dtype == torch.float32:
-        return _launch(fused_dual_mlp_cols, "fused_cols_mlp",
-                       "surs_fused_dual_mlp_cols_f32", w, (ncol, z),
-                       (x_lr.data_ptr(), x_hr.data_ptr(), x_lr.shape[1],
-                        zf.data_ptr(), ncol, z))
+    z = zf.shape[0]
     pk = _check_packed(fw)
+    entry = f"surs_fused_dual_mlp_cols_{_entries(pk)[1]}"
 
     def launch(lib, terms, s, e, out_hr, out_lr, stream):
-        return lib.surs_fused_dual_mlp_cols_wgmma(
+        return getattr(lib, entry)(
             terms.data_ptr(), zf.data_ptr(), e - s, z, pk.whid.data_ptr(),
             pk.cvec.data_ptr(), pk.hvec.data_ptr(), out_hr[s:e].data_ptr(),
             out_lr[s:e].data_ptr(), stream)
@@ -1115,8 +1297,9 @@ def fused_dual_mlp_runs(x_lr: torch.Tensor, x_hr: torch.Tensor,
     float32 per-window depth offsets, zt [zb] the shared in-window
     depths -> ([NR, zb], [NR, zb]) float32; row (w, t) is scored at
     depth feature kf[w] + zt[t]. ``fw`` as for :func:`fused_dual_mlp_cols`.
-    CUDA tensors launch kernel K4 (zb = 8; bf16 in chunks as K3; counted
-    once per call in ``fused_dual_mlp_runs.launches``); CPU tensors take
+    CUDA tensors launch kernel K4 (zb = 8; in chunks as K3, bf16 or
+    3xTF32 by the packing, raising without it; counted once per call in
+    ``fused_dual_mlp_runs.launches``); CPU tensors take
     :func:`fused_dual_mlp_runs_ref`; anything else raises."""
     w = _fw_of(fw)
     nr = x_lr.shape[0]
@@ -1127,15 +1310,11 @@ def fused_dual_mlp_runs(x_lr: torch.Tensor, x_hr: torch.Tensor,
         raise ValueError(f"K4 is built for {RUNS_WINDOW}-deep windows, got "
                          f"zt of {zt.shape[0]}")
     _check_kernel_inputs([x_lr, x_hr, kf, zt], w)
-    if w.w_lr.dtype == torch.float32:
-        return _launch(fused_dual_mlp_runs, "fused_cols_mlp",
-                       "surs_fused_dual_mlp_runs_f32", w, (nr, RUNS_WINDOW),
-                       (x_lr.data_ptr(), x_hr.data_ptr(), x_lr.shape[1],
-                        kf.data_ptr(), zt.data_ptr(), nr))
     pk = _check_packed(fw)
+    entry = f"surs_fused_dual_mlp_runs_{_entries(pk)[1]}"
 
     def launch(lib, terms, s, e, out_hr, out_lr, stream):
-        return lib.surs_fused_dual_mlp_runs_wgmma(
+        return getattr(lib, entry)(
             terms.data_ptr(), zt.data_ptr(), e - s, pk.whid.data_ptr(),
             pk.cvec.data_ptr(), pk.hvec.data_ptr(), out_hr[s:e].data_ptr(),
             out_lr[s:e].data_ptr(), stream)
@@ -1176,6 +1355,10 @@ def _launch(wrapper, lib_name: str, fn_name: str, fw: FusedWeights, shape,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the weights, the outputs and the stream of the K1-style entry points
 _W7 = [_P] * 7
+# K3 / K4 in either dtype: the pre-pass and the two chains
+_TERMS = [_P, _P, _I, _P, _I, _P, _P, _P, _P]
+_K3 = [_P, _P, _I, _I] + [_P] * 6
+_K4 = [_P, _P, _I] + [_P] * 6
 # each library's entry points and their argument types
 _SIGNATURES = {
     "fused_dual_mlp": {
@@ -1189,11 +1372,12 @@ _SIGNATURES = {
                             + [_I, _I, _P],
     },
     "fused_cols_mlp": {
-        "surs_fused_dual_mlp_cols_f32": [_P, _P, _I, _P, _I, _I] + _W7,
-        "surs_fused_dual_mlp_runs_f32": [_P, _P, _I, _P, _P, _I] + _W7,
-        "surs_cols_terms_bf16": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
-        "surs_fused_dual_mlp_cols_wgmma": [_P, _P, _I, _I] + [_P] * 6,
-        "surs_fused_dual_mlp_runs_wgmma": [_P, _P, _I] + [_P] * 6,
+        "surs_cols_terms_bf16": _TERMS,
+        "surs_cols_terms_tf32x3": _TERMS,
+        "surs_fused_dual_mlp_cols_wgmma": _K3,
+        "surs_fused_dual_mlp_cols_tf32x3": _K3,
+        "surs_fused_dual_mlp_runs_wgmma": _K4,
+        "surs_fused_dual_mlp_runs_tf32x3": _K4,
     },
 }
 

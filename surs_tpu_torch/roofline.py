@@ -11,9 +11,10 @@ TB/s; at the 700 W limit). Operations are the real multiply-adds of the occupanc
 (2 FLOP each), counted from the layer widths: K1 and K2 run both MLPs
 per point; K3 and K4 run the feature products once per column (or
 window) and only the hidden chain per depth sample; K5 only moves rows.
-K2 is float32-accurate on the tensor cores by 3xTF32 (three TF32
-products per float32 product): its bound counts the same multiply-adds
-three times at the TF32 peak, beside the float32 FMA bound. The winding
+K2 and the float32 K3 / K4 are float32-accurate on the tensor cores by
+3xTF32 (three TF32 products per float32 product): their bounds count the
+same multiply-adds three times at the TF32 peak, beside the float32 FMA
+bound. The winding
 number (``containment_work``) runs outside the tensor cores, at the
 float32 peak.
 
@@ -120,6 +121,19 @@ def k4_work(nr: int, zb: int, dtype: str = "bfloat16"):
     return 2.0 * macs, float(nbytes)
 
 
+def k3_tf32x3_work(ncol: int, z: int):
+    """The float32 K3 in 3xTF32 (bound at the "tf32" peak): three times
+    k3_work's float32 operations, the same bytes."""
+    flops, nbytes = k3_work(ncol, z, "float32")
+    return 3.0 * flops, nbytes
+
+
+def k4_tf32x3_work(nr: int, zb: int):
+    """The float32 K4 in 3xTF32, as k3_tf32x3_work."""
+    flops, nbytes = k4_work(nr, zb, "float32")
+    return 3.0 * flops, nbytes
+
+
 def k5_work(rows: int, n_idx: int, channels: int, elem_bytes: int = 2):
     """K5: gather n_idx rows of feat [rows, channels] by int32 index:
     no arithmetic, feat and idx read once, the rows written once. The
@@ -164,8 +178,16 @@ MAIN_PATH = {
     "K3": ("fused_dual_mlp_cols, one dense 512^3 grid: 262,144 columns "
            "x 512 depths, bf16 weights",
            lambda: k3_work(512 * 512, 512), "bfloat16"),
+    "K3_f32": ("the same grid with float32 weights, 3xTF32 on the tensor "
+               "cores", lambda: k3_tf32x3_work(512 * 512, 512), "tf32"),
+    "K3_f32_fma": ("the same in float32 FMA outside the tensor cores",
+                   lambda: k3_work(512 * 512, 512, "float32"), "float32"),
     "K4": ("fused_dual_mlp_runs, one chunk of 32,768 windows x 8 depths, "
            "bf16 weights", lambda: k4_work(32_768, 8), "bfloat16"),
+    "K4_f32": ("the same chunk with float32 weights, 3xTF32",
+               lambda: k4_tf32x3_work(32_768, 8), "tf32"),
+    "K4_f32_fma": ("the same in float32 FMA outside the tensor cores",
+                   lambda: k4_work(32_768, 8, "float32"), "float32"),
     "K5": ("vmem_gather_probe, 49,152 rows of a [16384, 256] bf16 map",
            lambda: k5_work(16_384, 49_152, 256), "bfloat16"),
     "winding_number": ("containment of one training item's 25,500 "

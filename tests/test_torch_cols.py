@@ -216,10 +216,25 @@ def test_cpu_tensors_take_the_plain_versions(mlps):
 def test_hidden_stages_unpack_to_the_packed_blocks(mlps, bf16):
     """prepare_cols_weights' ring stages, read back through the
     documented index map (stage_index), are K1's [in, out] hidden blocks
-    exactly, for both MLPs; the map is a permutation of each stage."""
+    exactly, for both MLPs; the map is a permutation of each stage. In
+    float32 (the 3xTF32 kernels' stages, tf32_stages) they read back as
+    tf32_split's hi and lo of the blocks, each element in one stage
+    (tests/test_torch_cols_tf32.py holds them stage by stage)."""
     _, _, t_lr, t_hr = mlps
     cw = fm.prepare_cols_weights(
         t_lr, t_hr, C_LR, dtype=torch.bfloat16 if bf16 else torch.float32)
+    if not bf16:
+        whid = cw.packed.whid
+        assert tuple(whid.shape) == (2, len(fm.tf32_stages()),
+                                     fm.TF32_STAGE)
+        for m, (w, spec) in enumerate(((cw.fw.w_lr, cw.fw.spec_lr),
+                                       (cw.fw.w_hr, cw.fw.spec_hr))):
+            want = fm._hidden_blocks(w, spec, cw.fw.xk)
+            got = fm.unpack_hidden_tf32(whid[m])
+            for i in (1, 2, 3):
+                assert torch.equal(torch.stack(fm.tf32_split(want[i])),
+                                   got[i]), (m, i)
+        return
     idx = fm.stage_index().reshape(-1)
     assert torch.equal(idx.sort().values, torch.arange(fm.STAGE_K
                                                        * fm.STAGE_N))
@@ -243,7 +258,8 @@ def test_hidden_stages_unpack_to_the_packed_blocks(mlps, bf16):
 def test_cols_packing_vectors(mlps):
     """cvec holds each term's depth row, prediction row (zero padding in
     the coarse MLP) and bias; hvec each MLP's b1 and w4h; wfeat the
-    feature rows, transposed, zero past the terms."""
+    feature rows, transposed, zero past the terms: in float32 (the
+    3xTF32 kernels') as tf32_split's hi and lo."""
     _, _, t_lr, t_hr = mlps
     cw = fm.prepare_cols_weights(t_lr, t_hr, C_LR)
     pk, fw = cw.packed, cw.fw
@@ -254,7 +270,8 @@ def test_cols_packing_vectors(mlps):
             _, xb, bo, n = layout[i]
             wx = w[xb[0]:xb[0] + fw.xk * n].view(fw.xk, n)
             o = m * fm.TERMS_MLP + off
-            assert torch.equal(pk.wfeat[o:o + n], wx[:fm.FEAT].t())
+            assert torch.equal(pk.wfeat[:, o:o + n],
+                               torch.stack(fm.tf32_split(wx[:fm.FEAT].t())))
             assert torch.equal(pk.cvec[0, o:o + n], wx[fm.FEAT])
             assert torch.equal(pk.cvec[1, o:o + n], wx[fm.FEAT + 1])
             assert torch.equal(pk.cvec[2, o:o + n], b[bo:bo + n])
@@ -262,7 +279,7 @@ def test_cols_packing_vectors(mlps):
         h4 = layout[4][0]
         assert torch.equal(pk.hvec[m, 512:], w[h4[0]:h4[0] + 128])
     assert not pk.cvec[1, :fm.TERMS_MLP].any()
-    assert not pk.wfeat[fm.TERMS_COLS:].any()
+    assert not pk.wfeat[:, fm.TERMS_COLS:].any()
 
 
 @pytest.mark.parametrize("with_kf", [False, True])
