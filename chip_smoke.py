@@ -13,16 +13,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
               and warnings per kernel and, where the toolkit has
               cuobjdump, the HGMMA count of each kernel's SASS; the bf16
               K1/K3/K4 kernels, K2's 3xTF32 GEMM, the float32 (3xTF32)
-              K3/K4 kernels and pre-pass and K5's four kernels must not
-              spill, and the wgmma kernels must hold HGMMA that ptxas
-              did not serialize (its C7511 report).
+              K1/K3/K4 chain kernels and pre-pass and K5's four kernels
+              must not spill, and the wgmma kernels must hold HGMMA that
+              ptxas did not serialize (its C7511 report).
   2. k1:      kernel K1 (fused dual MLP) against its plain PyTorch version
               on the card, at the serving shapes (N = 50,000 and a ragged
-              49,999; in bf16 also 257, 129, 127 and 1, the ragged edges
-              of a 128-point tile; the (256, 65) input split; full
-              widths), in bf16 and float32, with the kernel's and the
-              plain version's times, TFLOP/s and the card's bound for the
-              same work.
+              49,999; also 257, 129, 127 and 1, the ragged edges of a
+              128-point tile; the (256, 65) input split, in float32 also
+              one [N, 321] part; full widths), in bf16 and float32
+              (3xTF32: the float32 K3/K4's pre-pass and chain, one point
+              a row), with the kernel's and the plain version's times,
+              TFLOP/s and the card's bound for the same work; in float32
+              also the pre-pass alone, both bounds (3xTF32 at the TF32
+              peak, float32 FMA), the rate of TF32 products and the CUDA
+              launches a call (torch.profiler).
   3. k2:      kernel K2 (the training variant, float32 weights, 3xTF32
               on the tensor cores) against its plain version at the
               training shapes (N = B * num_sample_inout = 12,000 and a
@@ -139,6 +143,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               RefColorNet's on the same inputs within COLOR_CPU_TOL;
               colorize_s, the color write's seconds, the vertices and the
               card's peak memory.
+ 9g. mono_f32: SuRSService with feature_dtype float32 serves one
+              subject at 512^3 on the mono octree through the float32 K1
+              (K1's, K3's and K4's launch counts zeroed just before and
+              read just after: K1 > 0, K3 = K4 = 0), with its peak memory
+              and time by stage.
  10. dense:   SuRSService(use_octree=False) serves one subject at 512^3
               through K3 (K3's and K1's launch counts zeroed just before
               and read just after: K3 > 0, K1 = 0), with its time by
@@ -293,8 +302,8 @@ torch.profiler breakdown of 3 fused steps) and ``serve_profile`` (one
 mono octree evaluation at 512^3 timed 4 times and profiled once: device
 time by kernel, device operations, K1's device time, busy share). Then a line
 saying that the orbax reader (compat/orbax_import.py) is not run here, a
-``{"kernels": [...]}`` line (K1-K5, and the float32 K3 and K4 with
-their own launches from `dense` and `runs`), a ``{"port_kernels": [...]}`` line
+``{"kernels": [...]}`` line (K1-K5, and the float32 K1, K3 and K4 with
+their own launches from `mono_f32`, `dense` and `runs`), a ``{"port_kernels": [...]}`` line
 (the winding number, which replaces no Pallas kernel), the card's name
 and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -326,11 +335,12 @@ TRAIN_STEPS = 6                  # 1 warm-up + 5 timed
 # bf16: both round the input, every activation and pred_lr to bf16 and
 # sum in float32; only the summation order differs, which can flip a
 # bf16 rounding (2^-8 relative) of an activation now and then.
-# float32: the same products summed in another order, ~1e-7 relative per
-# sum of ~1000 terms, on outputs in [0, 1].
+# float32: the kernel's 3xTF32 keeps each product to about 2^-21
+# relative (lo.lo dropped, each split 2^-22), at float32 FMA's level, and
+# sums in another order (as K2_TOL), on outputs in [0, 1].
 K1_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
-# point counts around the bf16 K1's 128-point tile and its two 64-row
-# warpgroups
+# point counts around K1's 128-point tile and its two 64-row warpgroups
+# (both dtypes)
 K1_RAGGED = (257, 129, 127, 1)
 # the CLI phase's grid
 CLI_RESOLUTION = 128
@@ -442,7 +452,7 @@ def time_cuda_batch(fn, calls: int = 20, reps: int = 5) -> float:
 # K5's four kernels, which must not spill either
 K5_KERNELS = ("row_gather_vec_bf16_kernel", "row_gather_vec_f32_kernel",
               "row_gather_loop_bf16_kernel", "row_gather_loop_f32_kernel")
-KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
+KERNELS = ("fused_dual_mlp_wgmma_kernel",
            "fused_dual_mlp_train_tf32x3_gemm_kernel",
            "fused_dual_mlp_train_tf32x3_pack_kernel",
            "fused_dual_mlp_train_tf32x3_split_kernel",
@@ -450,6 +460,7 @@ KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
            "fused_dual_mlp_cols_wgmma_kernel", "fused_dual_mlp_runs_wgmma_kernel",
            "cols_terms_tf32x3_kernel", "fused_dual_mlp_cols_tf32x3_kernel",
            "fused_dual_mlp_runs_tf32x3_kernel",
+           "fused_dual_mlp_points_tf32x3_kernel",
            "winding_number_kernel", "winding_number_reduce_kernel",
            ) + K5_KERNELS
 # the kernel sources, and the host library of the OBJ writer and reader
@@ -457,13 +468,14 @@ KERNELS = ("fused_dual_mlp_wgmma_kernel", "fused_dual_mlp_f32_kernel",
 SOURCES = ("fused_dual_mlp", "fused_train_tf32", "fused_cols_mlp",
            "row_gather", "winding_number", "mesh_native")
 # the bf16 K1/K3/K4 chain kernels, K2's 3xTF32 GEMM and the float32
-# (3xTF32) K3/K4 chain kernels, whose SASS must hold warpgroup MMAs
+# (3xTF32) K1/K3/K4 chain kernels, whose SASS must hold warpgroup MMAs
 WGMMA_KERNELS = ("fused_dual_mlp_wgmma_kernel",
                  "fused_dual_mlp_train_tf32x3_gemm_kernel",
                  "fused_dual_mlp_cols_wgmma_kernel",
                  "fused_dual_mlp_runs_wgmma_kernel",
                  "fused_dual_mlp_cols_tf32x3_kernel",
-                 "fused_dual_mlp_runs_tf32x3_kernel")
+                 "fused_dual_mlp_runs_tf32x3_kernel",
+                 "fused_dual_mlp_points_tf32x3_kernel")
 
 
 def ptxas_report(log: str):
@@ -564,7 +576,44 @@ def kernel_mlps():
     return tuple(m.cuda() for m in mlps)
 
 
+def k1_inputs(rng, n: int, one_part: bool):
+    """K1's input at n points: the served (256, 65) split (part 2's last
+    column the depth), or one [n, 321] part."""
+    import torch
+    x = torch.from_numpy(rng.standard_normal((n, 321)).astype(
+        np.float32)).cuda()
+    return [x] if one_part else [x[:, :256].contiguous(),
+                                 x[:, 256:].contiguous()]
+
+
+def k1_f32_times(fw, parts, rec) -> None:
+    """The float32 K1 at N_MAIN: its pre-pass alone (the same features and
+    depth, contiguous, through column_terms), its CUDA launches a call
+    (torch.profiler), both bounds (3xTF32 at the TF32 peak, float32 FMA)
+    and its rate of TF32 products."""
+    import torch
+    from surs_tpu_torch import roofline
+    from surs_tpu_torch.ops import fused_mlp as fm
+
+    n = parts[0].shape[0]
+    cw = fm.prepare_cols_weights(None, None, 256, torch.float32, fw=fw)
+    x_lr, x_hr, kf = (t.contiguous() for t in fm._k1_split(parts))
+    flops, nbytes = roofline.k1_tf32x3_work(n)
+    ops = device_kernels(lambda: fm.fused_dual_mlp(parts, fw))
+    rec.update(
+        cols_terms_ms=time_cuda(lambda: fm.column_terms(x_lr, x_hr, kf, cw),
+                                20),
+        **cols_bounds(flops, nbytes, "float32",
+                      roofline.k1_work(n, "float32")[0]),
+        k1_kernel_launches_per_call=sum(ops.values()),
+        scratch_bytes=fm.k1_scratch_bytes(n))
+    rec["tf32_tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    rec["cols_terms_share"] = rec["cols_terms_ms"] / rec["ms"]
+
+
 def phase_k1():
+    """K1 against its plain version at the serving shapes and around its
+    tiles, in bf16 and float32 (both input forms), timed at N_MAIN."""
     import torch
     from surs_tpu_torch import roofline
     from surs_tpu_torch.ops import fused_mlp as fm
@@ -572,40 +621,44 @@ def phase_k1():
     mlp_lr, mlp_hr = kernel_mlps()
     rng = np.random.default_rng(SEED)
     results = {}
-    counts = {"bfloat16": (N_MAIN, N_MAIN - 1) + K1_RAGGED,
-              "float32": (N_MAIN, N_MAIN - 1)}
+    counts = (N_MAIN, N_MAIN - 1) + K1_RAGGED
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
         fw = fm.prepare_fused_weights(mlp_lr, mlp_hr, dtype=dtype)
-        for n in counts[dtype_name]:
-            x_lr = torch.from_numpy(rng.standard_normal(
-                (n, 256)).astype(np.float32)).cuda()
-            xz = torch.from_numpy(rng.standard_normal(
-                (n, 65)).astype(np.float32)).cuda()
-            parts = [x_lr, xz]
-            hr, lr = fm.fused_dual_mlp(parts, fw)
-            torch.cuda.synchronize()
-            ref_hr, ref_lr = fm.fused_dual_mlp_ref(parts, fw)
-            ok = bool(torch.isfinite(hr).all() and torch.isfinite(lr).all())
-            err = max((hr - ref_hr).abs().max().item(),
-                      (lr - ref_lr).abs().max().item())
-            rec = {"phase": "k1", "dtype": dtype_name, "n": n,
-                   "max_abs_err": err, "tol": K1_TOL[dtype_name],
-                   "pred_hr_range": [hr.min().item(), hr.max().item()]}
-            if n == N_MAIN:
-                flops, nbytes = roofline.k1_work(n, dtype_name)
-                b_ms, b_by = roofline.bound(flops, nbytes, dtype_name)
-                rec.update(
-                    ms=time_cuda(lambda: fm.fused_dual_mlp(parts, fw), 20),
-                    plain_ms=time_cuda(
-                        lambda: fm.fused_dual_mlp_ref(parts, fw), 5),
-                    bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
-                rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
-            emit(rec)
-            results[(dtype_name, n)] = rec
-            if not ok or not err <= K1_TOL[dtype_name]:
-                raise AssertionError(f"K1 disagrees with its plain version: "
-                                     f"{rec}")
+        forms = (False, True) if dtype_name == "float32" else (False,)
+        for n in counts:
+            for one_part in forms:
+                parts = k1_inputs(rng, n, one_part)
+                hr, lr = fm.fused_dual_mlp(parts, fw)
+                torch.cuda.synchronize()
+                ref_hr, ref_lr = fm.fused_dual_mlp_ref(parts, fw)
+                ok = bool(torch.isfinite(hr).all()
+                          and torch.isfinite(lr).all())
+                err = max((hr - ref_hr).abs().max().item(),
+                          (lr - ref_lr).abs().max().item())
+                rec = {"phase": "k1", "dtype": dtype_name, "n": n,
+                       "input": "one part" if one_part else "(256, 65)",
+                       "max_abs_err": err, "tol": K1_TOL[dtype_name],
+                       "pred_hr_range": [hr.min().item(), hr.max().item()]}
+                if n == N_MAIN and not one_part:
+                    rec.update(
+                        ms=time_cuda(lambda: fm.fused_dual_mlp(parts, fw),
+                                     20),
+                        plain_ms=time_cuda(
+                            lambda: fm.fused_dual_mlp_ref(parts, fw), 5))
+                    flops, nbytes = roofline.k1_work(n, dtype_name)
+                    rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+                    if dtype_name == "float32":
+                        k1_f32_times(fw, parts, rec)
+                    else:
+                        b_ms, b_by = roofline.bound(flops, nbytes, dtype_name)
+                        rec.update(bound_ms=b_ms, bound_by=b_by,
+                                   gflop=flops / 1e9)
+                emit(rec)
+                results[(dtype_name, n, one_part)] = rec
+                if not ok or not err <= K1_TOL[dtype_name]:
+                    raise AssertionError(f"K1 disagrees with its plain "
+                                         f"version: {rec}")
     return results
 
 
@@ -1771,6 +1824,49 @@ def dense_float32(out_dir: str, img, mask, subjects) -> dict:
     clear_objs(out_dir)
     torch.cuda.empty_cache()
     return out
+
+
+def phase_mono_f32(out_dir: str, subjects) -> dict:
+    """One 512^3 subject served on the mono octree with --feature_dtype
+    float32, through the float32 K1 (3xTF32: the pre-pass and the chain
+    one point a row); K1's, K3's and K4's launch counts zeroed just before
+    and read just after, the peak memory; then its time by stage."""
+    import torch
+    from surs_tpu_torch.ops import fused_mlp as fm
+    from surs_tpu_torch.serve import SuRSService
+
+    service = SuRSService(full_width_config(feature_dtype="float32"))
+    service.warmup((256, 256))
+    img, mask = subjects[0]
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fm.fused_dual_mlp.launches = 0        # main path starts here
+    fm.fused_dual_mlp_cols.launches = 0
+    fm.fused_dual_mlp_runs.launches = 0
+    t1 = time.perf_counter()
+    service.reconstruct(img, mask, "mono_f32", out_dir, stats=stats)
+    torch.cuda.synchronize()
+    rec = {"phase": "mono_f32", "seconds": time.perf_counter() - t1,
+           "mode": stats["mode"], "queries": stats["queries"],
+           "faces": stats["faces"],
+           "k1_launches": fm.fused_dual_mlp.launches,
+           "k3_launches": fm.fused_dual_mlp_cols.launches,
+           "k4_launches": fm.fused_dual_mlp_runs.launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    stages = phase_stages(service, subjects, out_dir,
+                          phase="mono_f32_stages")
+    rec["stages"] = {k: stages[k] for k in ("mode", "encode_s", "evaluate_s",
+                                            "extract_s", "write_s")}
+    emit(rec)
+    del service
+    clear_objs(out_dir)
+    torch.cuda.empty_cache()
+    if not (rec["k1_launches"] > 0 and rec["k3_launches"] == 0
+            and rec["k4_launches"] == 0 and rec["faces"][1] > 0
+            and rec["mode"] == stages["mode"] == "octree-mono"):
+        raise AssertionError(f"mono_f32 failed: {rec}")
+    return rec
 
 
 def phase_runs(out_dir: str, subjects, serve_rec=None):
@@ -3904,7 +4000,7 @@ def phase_parallel(out_dir: str, subjects):
 
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "containment", "serve",
           "check", "stages", "native_io", "tets", "cli", "eval", "turntable",
-          "color", "dense", "runs", "train", "train_check", "configs",
+          "color", "mono_f32", "dense", "runs", "train", "train_check", "configs",
           "train_data", "precompute", "prt", "compute_points", "profile",
           "parallel", "accuracy")
 # run only when named in --phases
@@ -3936,7 +4032,7 @@ def main() -> int:
     subjects = [synthetic_subject(i) for i in range(3)]
     k5 = phase_k5(subjects) if "k5" in phases else None
     cont = phase_containment() if "containment" in phases else None
-    serve = dense = runs = tr = fed = None
+    serve = mono = dense = runs = tr = fed = None
     with tempfile.TemporaryDirectory() as out_dir:
         if "serve" in phases or "tets" in phases:
             service, subjects, serve = phase_serve(out_dir)
@@ -3965,6 +4061,8 @@ def main() -> int:
             torch.cuda.empty_cache()
         if "serve_profile" in phases:
             phase_serve_profile(subjects)
+        if "mono_f32" in phases:
+            mono = phase_mono_f32(out_dir, subjects)
         if "dense" in phases:
             dense = phase_dense(out_dir, subjects)
         if "runs" in phases:
@@ -4007,7 +4105,8 @@ def main() -> int:
         print_card()
         emit({"partial": phases})
         return 0
-    main_rec = k1[("bfloat16", N_MAIN)]
+    main_rec = k1[("bfloat16", N_MAIN, False)]
+    f32_rec = k1[("float32", N_MAIN, False)]
     k2_rec = k2[N_TRAIN]
     emit({"kernels": [{
         "name": "fused_dual_mlp",
@@ -4015,12 +4114,29 @@ def main() -> int:
         "source": "surs_tpu_torch/csrc/fused_dual_mlp.cu",
         "replaces": "surs_tpu/ops/fused_mlp.py:228",
         "launches": serve["k1_launches"],
-        "max_abs_err": max(r["max_abs_err"] for (d, _), r in k1.items()
+        "max_abs_err": max(r["max_abs_err"] for (d, _, _), r in k1.items()
                            if d == "bfloat16"),
         "ms": main_rec["ms"],
         "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"],
         "bound_by": main_rec["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_dual_mlp_points_tf32x3",
+        "route": "cuda",
+        "source": "surs_tpu_torch/csrc/fused_cols_mlp.cu",
+        "replaces": "surs_tpu/ops/fused_mlp.py:228 (float32 weights)",
+        "launches": mono["k1_launches"],
+        "max_abs_err": max(r["max_abs_err"] for (d, _, _), r in k1.items()
+                           if d == "float32"),
+        "ms": f32_rec["ms"],
+        "plain_ms": f32_rec["plain_ms"],
+        "bound_ms": f32_rec["bound_ms"],
+        "bound_by": f32_rec["bound_by"],
+        "bound_fma_ms": f32_rec["bound_fma_ms"],
+        "cols_terms_ms": f32_rec["cols_terms_ms"],
+        "cuda_launches_per_call": f32_rec["k1_kernel_launches_per_call"],
+        "per": "one 50,000-point call (the pre-pass and the chain)",
         "library_ms": None,
     }, {
         "name": "fused_dual_mlp_train",

@@ -85,9 +85,23 @@
 //     3-slot ring: each weight byte read from L2 feeds 128 rows, 11 MB a
 //     tile. The column terms, depth rows and biases are read through L1.
 //
+// The float32 K1 (the Pallas kernel `fused_dual_mlp`, body `_kernel`,
+// with float32 weights) is the same two kernels with one point a row: a
+// point is a K4 window of one depth. The pre-pass takes the point's 320
+// features, and its depth (input column 320) as kf, so kf . w_z is in
+// every term; fused_dual_mlp_points_tf32x3_kernel then runs the chain
+// over tiles of 128 points, each row reading its own terms, with no
+// in-chain depth, pred_lr entering the fine MLP unrounded as float32
+// (K1's float32 plain version rounds nothing). Bound: 228.25 GFLOP per
+// 50,000 points, 1.38 ms as 3xTF32 at the TF32 peak (3.41 ms by float32
+// FMA). bf16 K1's design, the input tile in shared memory, does not fit
+// float32: X [128, 320] is 160 KB beside the ring and layer 2's sums, and
+// layer 1's four chunks would rebuild layer 0 four times.
+//
 // Built with nvcc into a shared library with a plain C interface
 // (ops/cuda_build.py); the wrappers are ops/fused_mlp.py:fused_dual_mlp_cols
-// and fused_dual_mlp_runs (and column_terms, either pre-pass alone).
+// and fused_dual_mlp_runs (and column_terms, either pre-pass alone), and
+// for float32 weights fused_dual_mlp.
 
 #include "wg_chain.cuh"
 
@@ -100,6 +114,9 @@ constexpr int COL0 = 0, COL2 = D0, COL3 = D0 + D2, COL4 = D0 + D2 + D3;
 constexpr int CW = COL4 + 1;      // 1409
 constexpr int CWP = CW + 3;       // 1412: one MLP's terms, 16-byte rows
 constexpr int CSTR = 2 * CWP;     // 2824: one column's terms, both MLPs
+// what a row of a chain tile is: K3 a depth of one column, K4 a depth of
+// a window (the bf16 chain's `bool RUNS` is 0 or 1), K1 a point
+enum RowMode : int { COL_ROWS = 0, WIN_ROWS = 1, POINT_ROWS = 2 };
 
 // =========================================== bf16: the column pre-pass ===
 constexpr int TM = 128;                 // columns per block
@@ -525,14 +542,17 @@ __device__ __forceinline__ void produce(const WgArgs& a, uint32_t ring0,
   }
 }
 
-// The two rows' predictions to out [n, z] (K3) or [n, WIN] (K4), past
-// the ragged edges of n and z nothing.
-template <bool RUNS>
+// The two rows' predictions to out [n, z] (K3), [n, WIN] (K4) or [n]
+// (K1), past the ragged edges of n and z nothing.
+template <int MODE>
 __device__ __forceinline__ void store_rows(const WgArgs& a, float* out,
                                            float2 v, const Rows& r, int zb,
                                            int gid, int tig) {
   if (tig != 0) return;
-  if (RUNS) {
+  if (MODE == POINT_ROWS) {
+    if (r.g0 < a.n) out[r.g0] = v.x;
+    if (r.g1 < a.n) out[r.g1] = v.y;
+  } else if (MODE == WIN_ROWS) {
     if (r.g0 < a.n) out[r.g0 * WIN + gid] = v.x;
     if (r.g1 < a.n) out[r.g1 * WIN + gid] = v.y;
   } else {
@@ -542,14 +562,22 @@ __device__ __forceinline__ void store_rows(const WgArgs& a, float* out,
 }
 
 // The two rows of a thread (m0 and m0 + 8 of the tile) in `tile`: K3
-// depths zb and zb + 8 of one column, K4 depth gid of two windows.
-template <bool RUNS>
+// depths zb and zb + 8 of one column, K4 depth gid of two windows, K1
+// points m0 and m0 + 8 of the tile's 128 (depth 0: it is in their terms).
+// Rows past n read the terms' padding rows (the pre-pass fills whole
+// blocks of 128) and store nothing.
+template <int MODE>
 __device__ __forceinline__ Rows tile_rows(const WgArgs& a, int tile, int m0,
                                           int gid, int& zb) {
-  constexpr int G = RUNS ? MROWS / WIN : 1;
+  constexpr int G = MODE == WIN_ROWS ? MROWS / WIN : 1;
   Rows r;
   zb = 0;
-  if (RUNS) {
+  if (MODE == POINT_ROWS) {
+    r.g0 = tile * MROWS + m0;               // n < 2^31
+    r.g1 = r.g0 + 8;
+    r.c0 = r.c1 = 0;
+    r.z0 = r.z1 = 0.f;
+  } else if (MODE == WIN_ROWS) {
     r.g0 = tile * G + m0 / WIN;             // m0 / 8 = 8 w + 2 q
     r.g1 = r.g0 + 1;
     r.c0 = m0 / WIN;
@@ -632,11 +660,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     fused_dual_mlp_runs_wgmma_kernel(WgArgs a) { wg_body<true>(a); }
 
 // A persistent grid of min(tiles, SMs) blocks of `kernel` over the tiles
-// of K3 (128 depths of a column) or K4 (16 windows).
-template <bool RUNS>
+// of K3 (128 depths of a column), K4 (16 windows) or K1 (128 points).
+template <int MODE>
 int launch_chain(void (*kernel)(WgArgs), size_t bytes, WgArgs a,
                  void* stream) {
-  constexpr int G = RUNS ? MROWS / WIN : 1;
+  constexpr int G = MODE == WIN_ROWS ? MROWS / WIN : MROWS;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -645,8 +673,8 @@ int launch_chain(void (*kernel)(WgArgs), size_t bytes, WgArgs a,
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   long long tiles;
-  if (RUNS) {
-    tiles = (a.n + G - 1) / G;
+  if (MODE != COL_ROWS) {
+    tiles = ((long long)a.n + G - 1) / G;
   } else {
     a.z_tiles = (a.z + MROWS - 1) / MROWS;
     tiles = (long long)a.n * a.z_tiles;
@@ -690,11 +718,12 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
 }
 
 struct TermsF32Args {
-  const float* x_lr;   // [n, c_lr]
-  const float* x_hr;   // [n, FEAT - c_lr]
+  const float* x_lr;   // [n, c_lr], rows ld_lr floats apart
+  const float* x_hr;   // [n, FEAT - c_lr], rows ld_hr apart
   int c_lr;
-  const float* kf;     // [n] or null
+  const float* kf;     // [n], ld_kf apart, or null
   int n;
+  long long ld_lr, ld_hr, ld_kf;   // K1's input parts are read in place
   const float* wfeat;  // [2, TERMS_N, FEAT]: hi, lo of W_feat transposed
   const float* cvec;   // [3, CSTR]: depth rows, prediction rows, biases
   float* terms;        // [ceil(n / PM) * PM, CSTR]
@@ -716,7 +745,6 @@ __global__ void __launch_bounds__(TTHREADS, 1)
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const long long m0 = (long long)blockIdx.x * PM;
-  const int c_hr = FEAT - a.c_lr;
 
   auto load_b = [&](int step, int buf) {
     const int nt = step / PKC, kc = step - nt * PKC;
@@ -735,11 +763,12 @@ __global__ void __launch_bounds__(TTHREADS, 1)
     const long long c = m0 + r;
     float v = 0.f;
     if (c < a.n)
-      v = k < a.c_lr ? a.x_lr[c * a.c_lr + k]
-                     : a.x_hr[c * c_hr + (k - a.c_lr)];
+      v = k < a.c_lr ? a.x_lr[c * a.ld_lr + k]
+                     : a.x_hr[c * a.ld_hr + (k - a.c_lr)];
     As[r * PLDA + k] = v;
   }
-  if (t < PM) kfs[t] = a.kf != nullptr && m0 + t < a.n ? a.kf[m0 + t] : 0.f;
+  if (t < PM)
+    kfs[t] = a.kf != nullptr && m0 + t < a.n ? a.kf[(m0 + t) * a.ld_kf] : 0.f;
 
   const float* wz = a.cvec;
   const float* bias = a.cvec + 2 * CSTR;
@@ -856,11 +885,13 @@ static_assert(F_SMEM <= 232448, "over a block's 227 KB of shared memory");
 
 using FRing = RingT<F_SLOTS, F_STAGE_BYTES>;
 
-// leaky(acc + column term + z w_z [+ pred w_p]), float32 throughout
-template <bool HR>
+// leaky(acc + column term [+ z w_z] [+ pred w_p]), float32 throughout;
+// K1 (no DEPTH) has its depth in the terms
+template <bool HR, bool DEPTH = true>
 __device__ __forceinline__ float act32(float acc, float c, float z, float wz,
                                        float p, float wp) {
-  float v = acc + c + z * wz;
+  float v = acc + c;
+  if (DEPTH) v += z * wz;
   if (HR) v += p * wp;
   return leaky(v);
 }
@@ -922,7 +953,7 @@ __device__ __forceinline__ void run_stage(FRing& ring, float (&d)[64],
 struct L0Raw {
   float2 c0[4], c1[4], wz[4], wp[4];
 };
-template <bool RUNS, bool HR>
+template <bool OWN, bool DEPTH, bool HR>
 __device__ __forceinline__ void load_l0(L0Raw& q, const float* t0,
                                         const float* t1, const float* wz,
                                         const float* wp, int tig) {
@@ -930,17 +961,20 @@ __device__ __forceinline__ void load_l0(L0Raw& q, const float* t0,
   for (int j = 0; j < 4; ++j) {
     const int k = 8 * j + 2 * tig;
     q.c0[j] = ldg2(t0 + k);
-    q.c1[j] = RUNS ? ldg2(t1 + k) : q.c0[j];
-    q.wz[j] = ldg2(wz + k);
+    q.c1[j] = OWN ? ldg2(t1 + k) : q.c0[j];
+    q.wz[j] = DEPTH ? ldg2(wz + k) : make_float2(0.f, 0.f);
     q.wp[j] = HR ? ldg2(wp + k) : make_float2(0.f, 0.f);
   }
 }
 
 // One MLP over the warpgroup's 64 rows; returns the predictions of rows
-// r0 and r0 + 8 (every lane of a quad holds them).
-template <bool RUNS, bool HR>
+// r0 and r0 + 8 (every lane of a quad holds them). OWN: the two rows read
+// their own terms (K4's windows, K1's points); DEPTH: an in-chain depth
+// term (K3, K4).
+template <int MODE, bool HR>
 __device__ float2 mlp_tf32(const WgArgs& a, FRing& ring, float* sums,
                            const Rows& r, int tig) {
+  constexpr bool OWN = MODE != COL_ROWS, DEPTH = MODE != POINT_ROWS;
   // the MLP's index, opaque to the compiler (as mlp_wg's)
   int m = HR ? 1 : 0;
   asm volatile("" : "+r"(m));
@@ -948,7 +982,7 @@ __device__ float2 mlp_tf32(const WgArgs& a, FRing& ring, float* sums,
   const float* wz = a.cvec + m * CWP;          // depth rows, term layout
   const float* wp = a.cvec + CSTR + m * CWP;   // prediction rows
   const float* t0 = a.terms + (size_t)r.g0 * CSTR + m * CWP;
-  const float* t1 = RUNS ? a.terms + (size_t)r.g1 * CSTR + m * CWP : t0;
+  const float* t1 = OWN ? a.terms + (size_t)r.g1 * CSTR + m * CWP : t0;
   float sum[64], d[64];
   uint32_t ah[4][4], al[4][4];
 
@@ -958,21 +992,26 @@ __device__ float2 mlp_tf32(const WgArgs& a, FRing& ring, float* sums,
 #pragma unroll
     for (int i = 0; i < 64; ++i) sum[i] = 0.f;
     L0Raw q;
-    load_l0<RUNS, HR>(q, t0 + COL0, t1 + COL0, wz + COL0, wp + COL0, tig);
+    load_l0<OWN, DEPTH, HR>(q, t0 + COL0, t1 + COL0, wz + COL0, wp + COL0,
+                            tig);
 #pragma unroll 1
     for (int kc = 0; kc < F_L1_KC; ++kc) {
       // layer 0: leaky(C0 + z w_z0 [+ pred w_p0]), layer 1's A
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         a_frag(ah, al, j,
-               act32<HR>(0.f, q.c0[j].x, r.z0, q.wz[j].x, r.p0, q.wp[j].x),
-               act32<HR>(0.f, q.c1[j].x, r.z1, q.wz[j].x, r.p1, q.wp[j].x),
-               act32<HR>(0.f, q.c0[j].y, r.z0, q.wz[j].y, r.p0, q.wp[j].y),
-               act32<HR>(0.f, q.c1[j].y, r.z1, q.wz[j].y, r.p1, q.wp[j].y));
+               act32<HR, DEPTH>(0.f, q.c0[j].x, r.z0, q.wz[j].x, r.p0,
+                                q.wp[j].x),
+               act32<HR, DEPTH>(0.f, q.c1[j].x, r.z1, q.wz[j].x, r.p1,
+                                q.wp[j].x),
+               act32<HR, DEPTH>(0.f, q.c0[j].y, r.z0, q.wz[j].y, r.p0,
+                                q.wp[j].y),
+               act32<HR, DEPTH>(0.f, q.c1[j].y, r.z1, q.wz[j].y, r.p1,
+                                q.wp[j].y));
       // the next stage's inputs load under this stage's products
       if (kc + 1 < F_L1_KC) {
         const int k = COL0 + (kc + 1) * FK;
-        load_l0<RUNS, HR>(q, t0 + k, t1 + k, wz + k, wp + k, tig);
+        load_l0<OWN, DEPTH, HR>(q, t0 + k, t1 + k, wz + k, wp + k, tig);
       }
       run_stage(ring, d, ah, al, 0);
 #pragma unroll
@@ -1027,15 +1066,17 @@ __device__ float2 mlp_tf32(const WgArgs& a, FRing& ring, float* sums,
     for (int j = 0; j < 4; ++j) {
       const int n = COL2 + FK * kc + 8 * j + 2 * tig;
       const float2 ca = ldg2(t0 + n);
-      const float2 cb = RUNS ? ldg2(t1 + n) : ca;
-      const float2 wzv = ldg2(wz + n);
+      const float2 cb = OWN ? ldg2(t1 + n) : ca;
+      const float2 wzv = DEPTH ? ldg2(wz + n) : make_float2(0.f, 0.f);
       const float2 wpv = HR ? ldg2(wp + n) : make_float2(0.f, 0.f);
       const float* pv = p + 4 * j * CONSUMERS;
       a_frag(ah, al, j,
-             act32<HR>(pv[0], ca.x, r.z0, wzv.x, r.p0, wpv.x),
-             act32<HR>(pv[2 * CONSUMERS], cb.x, r.z1, wzv.x, r.p1, wpv.x),
-             act32<HR>(pv[CONSUMERS], ca.y, r.z0, wzv.y, r.p0, wpv.y),
-             act32<HR>(pv[3 * CONSUMERS], cb.y, r.z1, wzv.y, r.p1, wpv.y));
+             act32<HR, DEPTH>(pv[0], ca.x, r.z0, wzv.x, r.p0, wpv.x),
+             act32<HR, DEPTH>(pv[2 * CONSUMERS], cb.x, r.z1, wzv.x, r.p1,
+                              wpv.x),
+             act32<HR, DEPTH>(pv[CONSUMERS], ca.y, r.z0, wzv.y, r.p0, wpv.y),
+             act32<HR, DEPTH>(pv[3 * CONSUMERS], cb.y, r.z1, wzv.y, r.p1,
+                              wpv.y));
     }
     run_stage(ring, d, ah, al, 0);
 #pragma unroll
@@ -1049,22 +1090,28 @@ __device__ float2 mlp_tf32(const WgArgs& a, FRing& ring, float* sums,
   for (int i = 0; i < 16; ++i) {
     const int n = 8 * i + 2 * tig;
     const float2 ca = ldg2(t0 + COL3 + n);
-    const float2 cb = RUNS ? ldg2(t1 + COL3 + n) : ca;
-    const float2 wzv = ldg2(wz + COL3 + n);
+    const float2 cb = OWN ? ldg2(t1 + COL3 + n) : ca;
+    const float2 wzv = DEPTH ? ldg2(wz + COL3 + n) : make_float2(0.f, 0.f);
     const float2 wpv = HR ? ldg2(wp + COL3 + n) : make_float2(0.f, 0.f);
     const float2 wo = ldg2(w4 + n);
-    s0 += act32<HR>(sum[4 * i], ca.x, r.z0, wzv.x, r.p0, wpv.x) * wo.x;
-    s0 += act32<HR>(sum[4 * i + 1], ca.y, r.z0, wzv.y, r.p0, wpv.y) * wo.y;
-    s1 += act32<HR>(sum[4 * i + 2], cb.x, r.z1, wzv.x, r.p1, wpv.x) * wo.x;
-    s1 += act32<HR>(sum[4 * i + 3], cb.y, r.z1, wzv.y, r.p1, wpv.y) * wo.y;
+    s0 += act32<HR, DEPTH>(sum[4 * i], ca.x, r.z0, wzv.x, r.p0, wpv.x) * wo.x;
+    s0 += act32<HR, DEPTH>(sum[4 * i + 1], ca.y, r.z0, wzv.y, r.p0, wpv.y) *
+          wo.y;
+    s1 += act32<HR, DEPTH>(sum[4 * i + 2], cb.x, r.z1, wzv.x, r.p1, wpv.x) *
+          wo.x;
+    s1 += act32<HR, DEPTH>(sum[4 * i + 3], cb.y, r.z1, wzv.y, r.p1, wpv.y) *
+          wo.y;
   }
 #pragma unroll
   for (int o = 1; o < 4; o <<= 1) {
     s0 += __shfl_xor_sync(0xffffffffu, s0, o);
     s1 += __shfl_xor_sync(0xffffffffu, s1, o);
   }
-  float l0 = s0 + t0[COL4] + r.z0 * wz[COL4];
-  float l1 = s1 + t1[COL4] + r.z1 * wz[COL4];
+  float l0 = s0 + t0[COL4], l1 = s1 + t1[COL4];
+  if (DEPTH) {
+    l0 += r.z0 * wz[COL4];
+    l1 += r.z1 * wz[COL4];
+  }
   if (HR) {
     l0 += r.p0 * wp[COL4];
     l1 += r.p1 * wp[COL4];
@@ -1090,7 +1137,7 @@ __device__ __forceinline__ void produce_f32(const WgArgs& a, uint32_t ring0,
   }
 }
 
-template <bool RUNS>
+template <int MODE>
 __device__ void f32_body(const WgArgs& a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem =
@@ -1122,20 +1169,22 @@ __device__ void f32_body(const WgArgs& a) {
 #pragma unroll 1
   for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
     int zb;
-    Rows r = tile_rows<RUNS>(a, tile, m0, gid, zb);
-    const float2 lr = mlp_tf32<RUNS, false>(a, ring, sums, r, tig);
-    store_rows<RUNS>(a, a.out_lr, lr, r, zb, gid, tig);
+    Rows r = tile_rows<MODE>(a, tile, m0, gid, zb);
+    const float2 lr = mlp_tf32<MODE, false>(a, ring, sums, r, tig);
+    store_rows<MODE>(a, a.out_lr, lr, r, zb, gid, tig);
     r.p0 = lr.x;
     r.p1 = lr.y;
-    const float2 hr = mlp_tf32<RUNS, true>(a, ring, sums, r, tig);
-    store_rows<RUNS>(a, a.out_hr, hr, r, zb, gid, tig);
+    const float2 hr = mlp_tf32<MODE, true>(a, ring, sums, r, tig);
+    store_rows<MODE>(a, a.out_hr, hr, r, zb, gid, tig);
   }
 }
 
 __global__ void __launch_bounds__(WG_THREADS, 1)
-    fused_dual_mlp_cols_tf32x3_kernel(WgArgs a) { f32_body<false>(a); }
+    fused_dual_mlp_cols_tf32x3_kernel(WgArgs a) { f32_body<COL_ROWS>(a); }
 __global__ void __launch_bounds__(WG_THREADS, 1)
-    fused_dual_mlp_runs_tf32x3_kernel(WgArgs a) { f32_body<true>(a); }
+    fused_dual_mlp_runs_tf32x3_kernel(WgArgs a) { f32_body<WIN_ROWS>(a); }
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    fused_dual_mlp_points_tf32x3_kernel(WgArgs a) { f32_body<POINT_ROWS>(a); }
 
 WgArgs wg_args(const void* terms, const void* zf, int n, int z,
                const void* whid, const void* cvec, const void* hvec,
@@ -1189,18 +1238,22 @@ int surs_fused_dual_mlp_runs_wgmma(const void* terms, const void* zt, int nr,
 }
 
 // The float32 column-term pre-pass (3xTF32) on `stream`, as
-// surs_cols_terms_bf16 but wfeat [2, 2880, 320] float32: hi, then lo.
-int surs_cols_terms_tf32x3(const void* x_lr, const void* x_hr, int c_lr,
-                           const void* kf, int n, const void* wfeat,
-                           const void* cvec, void* terms, void* stream) {
+// surs_cols_terms_bf16 but with row strides (floats: x_lr's rows ld_lr
+// apart, x_hr's ld_hr, kf's ld_kf) and wfeat [2, 2880, 320] float32: hi,
+// then lo.
+int surs_cols_terms_tf32x3(const void* x_lr, long long ld_lr,
+                           const void* x_hr, long long ld_hr, int c_lr,
+                           const void* kf, long long ld_kf, int n,
+                           const void* wfeat, const void* cvec, void* terms,
+                           void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       cols_terms_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)PRE_SMEM);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (n + PM - 1) / PM;
   TermsF32Args a{(const float*)x_lr, (const float*)x_hr, c_lr,
-                 (const float*)kf, n, (const float*)wfeat,
-                 (const float*)cvec, (float*)terms};
+                 (const float*)kf, n, ld_lr, ld_hr, ld_kf,
+                 (const float*)wfeat, (const float*)cvec, (float*)terms};
   cols_terms_tf32x3_kernel<<<blocks, TTHREADS, PRE_SMEM,
                              (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -1214,7 +1267,7 @@ int surs_fused_dual_mlp_cols_tf32x3(const void* terms, const void* zf,
                                     const void* cvec, const void* hvec,
                                     void* out_hr, void* out_lr,
                                     void* stream) {
-  return launch_chain<false>(
+  return launch_chain<COL_ROWS>(
       fused_dual_mlp_cols_tf32x3_kernel, F_SMEM,
       wg_args(terms, zf, ncol, z, whid, cvec, hvec, out_hr, out_lr), stream);
 }
@@ -1226,9 +1279,21 @@ int surs_fused_dual_mlp_runs_tf32x3(const void* terms, const void* zt,
                                     const void* cvec, const void* hvec,
                                     void* out_hr, void* out_lr,
                                     void* stream) {
-  return launch_chain<true>(
+  return launch_chain<WIN_ROWS>(
       fused_dual_mlp_runs_tf32x3_kernel, F_SMEM,
       wg_args(terms, zt, nr, WIN, whid, cvec, hvec, out_hr, out_lr), stream);
+}
+
+// Launch the float32 K1's chain (3xTF32) over the terms of n points (the
+// float32 pre-pass with kf the depth column), one point a row; out_* [n].
+int surs_fused_dual_mlp_points_tf32x3(const void* terms, int n,
+                                      const void* whid, const void* cvec,
+                                      const void* hvec, void* out_hr,
+                                      void* out_lr, void* stream) {
+  return launch_chain<POINT_ROWS>(
+      fused_dual_mlp_points_tf32x3_kernel, F_SMEM,
+      wg_args(terms, nullptr, n, 1, whid, cvec, hvec, out_hr, out_lr),
+      stream);
 }
 
 const char* surs_cuda_error_string(int code) {

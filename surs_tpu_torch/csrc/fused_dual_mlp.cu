@@ -42,8 +42,8 @@
 //     reduced with shuffles. Every epilogue works on the accumulators in
 //     registers.
 // Shared memory: h1's first half 64 KB + X 80 KB + the ring 80 KB.
-// float32 keeps the first design (a check path only): one block per
-// 32-point tile runs the whole chain with FMA loops (dual_mlp.cuh).
+// The float32 K1 is in fused_cols_mlp.cu: the float32 column-term
+// pre-pass, then the 3xTF32 chain with one point a row.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (ops/cuda_build.py); the wrapper is ops/fused_mlp.py:fused_dual_mlp.
@@ -535,52 +535,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-// ============================================ float32: FMA loops ===
-constexpr size_t SMEM32 = (size_t)BN32 * LDX32 * 4 +
-                          (size_t)BN32 * LDP32 * 4 + BN32 * 4;
-
-__device__ void mlp_f32(float* P, const float* X, const float* __restrict__ w,
-                        const float* __restrict__ b, float* pred) {
-  layer_f32<D0, 0, XK, false>(P, X, nullptr, w + OFF_W0X, BiasEpi{b + OFF_B0},
-                              P);
-  layer_f32<D1, D0, 0, true>(P, X, w + OFF_W1H, nullptr, BiasEpi{b + OFF_B1},
-                             P);
-  layer_f32<D2, D1, XK, true>(P, X, w + OFF_W2H, w + OFF_W2X,
-                              BiasEpi{b + OFF_B2}, P);
-  layer_f32<D3, D2, XK, true>(P, X, w + OFF_W3H, w + OFF_W3X,
-                              BiasEpi{b + OFF_B3}, P);
-  final_layer<float, BN32, XK>(P, LDP32, X, LDX32, w + OFF_W4H, w + OFF_W4X,
-                               ConstExtra{b[OFF_B4]}, pred);
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-    fused_dual_mlp_f32_kernel(const float* __restrict__ x0, int w0,
-                              const float* __restrict__ x1, int w1, int n,
-                              const float* __restrict__ wlr,
-                              const float* __restrict__ blr,
-                              const float* __restrict__ whr,
-                              const float* __restrict__ bhr,
-                              float* __restrict__ out_hr,
-                              float* __restrict__ out_lr) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* X = reinterpret_cast<float*>(smem);
-  float* P = X + BN32 * LDX32;
-  float* pred = P + BN32 * LDP32;
-  const int base = blockIdx.x * BN32;
-  const int t = threadIdx.x;
-
-  stage_input<float, BN32>(X, LDX32, x0, w0, x1, w1, n, base);
-  __syncthreads();
-  mlp_f32(P, X, wlr, blr, pred);
-  if (t < BN32) {
-    X[t * LDX32 + w0 + w1] = pred[t];
-    if (base + t < n) out_lr[base + t] = pred[t];
-  }
-  __syncthreads();
-  mlp_f32(P, X, whr, bhr, pred);
-  if (t < BN32 && base + t < n) out_hr[base + t] = pred[t];
-}
-
 }  // namespace
 
 extern "C" {
@@ -608,25 +562,6 @@ int surs_fused_dual_mlp_bf16(const void* x0, int w0, const void* x1, int w1,
            (float*)out_hr, (float*)out_lr};
   fused_dual_mlp_wgmma_kernel<<<tiles < sms ? tiles : sms, WG_THREADS,
                                 K1_SMEM, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// Launch K1 (float32) on `stream`; returns cudaGetLastError(). As the
-// bf16 entry, with K1's packed float32 weights and biases (w_*, b_*).
-int surs_fused_dual_mlp_f32(const void* x0, int w0, const void* x1, int w1,
-                            int n, const void* wlr, const void* blr,
-                            const void* whr, const void* bhr, void* out_hr,
-                            void* out_lr, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_dual_mlp_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM32);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (n + BN32 - 1) / BN32;
-  fused_dual_mlp_f32_kernel<<<blocks, THREADS, SMEM32,
-                              (cudaStream_t)stream>>>(
-      (const float*)x0, w0, (const float*)x1, w1, n, (const float*)wlr,
-      (const float*)blr, (const float*)whr, (const float*)bhr,
-      (float*)out_hr, (float*)out_lr);
   return (int)cudaGetLastError();
 }
 

@@ -40,11 +40,14 @@ compose the plain versions of their arithmetic.
 in the compute dtype, each layer split into the row block that
 multiplies the previous activation (``h``) and the row block that
 multiplies the input (``x``, zero-padded to ``XK`` rows), and the biases
-into one float32 buffer. The plain versions and the float32 K1 read
-these buffers; in bf16 at the kernel's widths it also repacks them for
-the bf16 K1 (``K1Packed``: ring stages in ``k1_stages`` order, in the
-wgmma layout of ``stage_index``, and the float32 epilogue rows). The TPU
-layout (128-lane padding) is not carried over.
+into one float32 buffer. The plain versions read these buffers. At the
+kernel's widths it also repacks them for K1: in bf16 ``K1Packed`` (ring
+stages in ``k1_stages`` order, in the wgmma layout of ``stage_index``,
+and the float32 epilogue rows); in float32, for weights on the card,
+the float32 K3/K4's ``ColsPackedTF32``, since the float32 K1 runs their
+kernels with one point a row (the pre-pass with the depth column as
+``kf``, then the chain; ``fused_dual_mlp_tf32x3_ref`` composes their
+plain versions). The TPU layout (128-lane padding) is not carried over.
 
 ``fused_dual_mlp`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors. The plain version rounds where the
@@ -93,7 +96,9 @@ class FusedWeights(NamedTuple):
     spec_lr: MLPSpec
     spec_hr: MLPSpec
     xk: int               # padded input width (dims_hr[0] rounded to 16)
-    packed: Optional[K1Packed] = None   # bf16 at the kernel's widths
+    # at the kernel's widths: K1Packed in bf16; ColsPackedTF32 in float32
+    # for weights on the card
+    packed: Optional[Tuple] = None
 
 
 def _layout(spec: MLPSpec, xk: int):
@@ -164,14 +169,25 @@ def prepare_fused_weights(mlp_lr, mlp_hr, dtype=torch.float32
                           ) -> FusedWeights:
     """Pack the two SurfaceClassifiers (models/surface_classifier.py)
     for K1 and K2, on their device, detached from autograd. dims_hr[0]
-    must be dims_lr[0] + 1. In bf16 at the kernel's widths, also the
-    bf16 K1's repacking (``K1Packed``)."""
+    must be dims_lr[0] + 1. At the kernel's widths, also K1's repacking:
+    ``K1Packed`` in bf16; in float32 ``ColsPackedTF32``, built only for
+    weights on the card (``_packs_f32_k1``): CPU tensors take the plain
+    version, which does not read it."""
     fw = _pack_pair([p.detach() for p in mlp_params(mlp_lr)],
                     [p.detach() for p in mlp_params(mlp_hr)],
                     _specs(mlp_lr, mlp_hr), dtype)
-    if dtype == torch.bfloat16 and _kernel_widths(fw):
-        fw = fw._replace(packed=_pack_k1(fw))
+    if _kernel_widths(fw):
+        if dtype == torch.bfloat16:
+            fw = fw._replace(packed=_pack_k1(fw))
+        elif dtype == torch.float32 and _packs_f32_k1(fw.w_lr.device):
+            fw = fw._replace(packed=_pack_cols(fw))
     return fw
+
+
+def _packs_f32_k1(device) -> bool:
+    """Whether prepare_fused_weights builds the float32 K1's packing for
+    weights on ``device``: on the card only."""
+    return device.type == "cuda"
 
 
 # ------------------------------------------------------------------------
@@ -233,15 +249,9 @@ def _check_kernel_inputs(inputs: List[torch.Tensor], fw: FusedWeights):
         raise ValueError(f"unsupported weight dtype {fw.w_lr.dtype}")
 
 
-def fused_dual_mlp(x, fw: FusedWeights) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both occupancy MLPs over point features.
-
-    ``x``: [N, dims_lr[0]] float32, or a sequence of parts [N, w_i]
-    (e.g. the (256, 65) split of lr features | hr features + depth).
-    Returns (pred_hr [N], pred_lr [N]) float32 in [0, 1]. CUDA tensors
-    launch kernel K1 (counted in ``fused_dual_mlp.launches``); CPU tensors
-    take :func:`fused_dual_mlp_ref`; anything else raises.
-    """
+def _k1_parts(x, fw: FusedWeights) -> List[torch.Tensor]:
+    """K1's input as a list of 2-D parts [N, w_i] making [N,
+    dims_lr[0]]; raises otherwise."""
     parts = list(x) if isinstance(x, (list, tuple)) else [x]
     N = parts[0].shape[0]
     widths = [p.shape[1] for p in parts]
@@ -249,25 +259,48 @@ def fused_dual_mlp(x, fw: FusedWeights) -> Tuple[torch.Tensor, torch.Tensor]:
             or sum(widths) != fw.spec_lr.dims[0]:
         raise ValueError(f"input parts {[tuple(p.shape) for p in parts]} "
                          f"do not make [N, {fw.spec_lr.dims[0]}]")
-    dev = parts[0].device
-    if dev.type == "cpu":
-        return fused_dual_mlp_ref(parts, fw)
-    if dev.type != "cuda":
+    return parts
+
+
+def _k1_takes_plain(dev) -> bool:
+    """True for CPU tensors, which take K1's plain version; False for
+    CUDA tensors; anything else raises."""
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not {dev}")
+    return dev.type == "cpu"
+
+
+def fused_dual_mlp(x, fw: FusedWeights) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both occupancy MLPs over point features.
+
+    ``x``: [N, dims_lr[0]] float32, or a sequence of parts [N, w_i]
+    (e.g. the (256, 65) split of lr features | hr features + depth).
+    Returns (pred_hr [N], pred_lr [N]) float32 in [0, 1]. CUDA tensors
+    launch kernel K1 (counted once per call in ``fused_dual_mlp.launches``):
+    in bf16 the wgmma chain of ``csrc/fused_dual_mlp.cu``; in float32 the
+    float32 K3/K4's pre-pass and chain with one point a row, per chunk of
+    ``K1_CHUNK_POINTS`` points (:func:`fused_dual_mlp_tf32x3_ref` is their
+    arithmetic); without ``prepare_fused_weights``' packing it raises. CPU
+    tensors take :func:`fused_dual_mlp_ref`; anything else raises.
+    """
+    parts = _k1_parts(x, fw)
+    N = parts[0].shape[0]
+    widths = [p.shape[1] for p in parts]
+    if _k1_takes_plain(parts[0].device):
+        return fused_dual_mlp_ref(parts, fw)
     if len(parts) > 2:
         raise ValueError("K1 takes one or two input parts")
     _check_kernel_inputs(parts, fw)
+    if fw.w_lr.dtype == torch.float32:
+        return _k1_tf32x3(parts, fw)
+    pk = fw.packed
+    if not isinstance(pk, K1Packed):
+        raise ValueError("the bf16 K1 takes prepare_fused_weights' "
+                         "packing at the kernel's widths")
     x1 = parts[1] if len(parts) == 2 else None
     inputs = (parts[0].data_ptr(), widths[0],
               x1.data_ptr() if x1 is not None else None,
               widths[1] if x1 is not None else 0, N)
-    if fw.w_lr.dtype == torch.float32:
-        return _launch(fused_dual_mlp, "fused_dual_mlp",
-                       "surs_fused_dual_mlp_f32", fw, (N,), inputs)
-    pk = fw.packed
-    if pk is None:
-        raise ValueError("the bf16 K1 takes prepare_fused_weights' "
-                         "packing at the kernel's widths")
     return _launch(fused_dual_mlp, "fused_dual_mlp",
                    "surs_fused_dual_mlp_bf16", fw, (N,), inputs,
                    weights=(pk.stages, pk.nbytes, pk.vec))
@@ -930,19 +963,29 @@ def _kernel_widths(fw: FusedWeights) -> bool:
 
 
 def prepare_cols_weights(mlp_lr, mlp_hr, hg_dim: int = 256,
-                         dtype=torch.float32) -> ColsWeights:
+                         dtype=torch.float32,
+                         fw: Optional[FusedWeights] = None) -> ColsWeights:
     """K3/K4 weights (``surs_tpu/ops/fused_mlp.py:prepare_cols_weights``):
     lr features (``hg_dim``) | hr features | depth, in K1's packing (the
     TPU's ``base_split`` only gave each segment its own 128-lane block),
     and, at the kernel's widths, the kernels' repacking of the same
-    weights: ``ColsPacked`` in bf16, ``ColsPackedTF32`` in float32."""
-    fw = prepare_fused_weights(mlp_lr, mlp_hr, dtype)
+    weights: ``ColsPacked`` in bf16, ``ColsPackedTF32`` in float32 (the
+    float32 K1's own packing where ``prepare_fused_weights`` built it, not
+    a second one). ``fw``: K1's weights of the same MLPs in ``dtype``,
+    to share rather than pack again."""
+    if fw is None:
+        fw = prepare_fused_weights(mlp_lr, mlp_hr, dtype)
+    elif fw.w_lr.dtype != dtype:
+        raise ValueError(f"fw is packed in {fw.w_lr.dtype}, not {dtype}")
     c_hr = fw.spec_lr.dims[0] - 1 - hg_dim
     if hg_dim <= 0 or c_hr <= 0:
         raise ValueError(f"hg_dim {hg_dim} leaves no hr features in an "
                          f"input of {fw.spec_lr.dims[0]}")
-    return ColsWeights(fw, (hg_dim, c_hr),
-                       _pack_cols(fw) if _kernel_widths(fw) else None)
+    packed = None
+    if _kernel_widths(fw):
+        packed = (fw.packed if isinstance(fw.packed, ColsPackedTF32)
+                  else _pack_cols(fw))
+    return ColsWeights(fw, (hg_dim, c_hr), packed)
 
 
 def _fw_of(w) -> FusedWeights:
@@ -963,8 +1006,9 @@ def column_terms_ref(x_lr: torch.Tensor, x_hr: torch.Tensor, kf,
     times W_feat, plus ``kf * w_z`` (kf [n] or None) and the bias, in
     float32: [n, TERMS_COLS], the terms of layers 0, 2, 3, 4 of each MLP
     at ``TERM_LAYERS`` (pads 0). bf16 (``ColsPacked``): the features
-    rounded to bf16 first; float32 (``ColsPackedTF32``): the product in
-    3xTF32 (:func:`tf32x3_matmul_ref`)."""
+    rounded to bf16 first; float32 (``ColsPackedTF32``, of ColsWeights
+    or of the float32 K1's FusedWeights): the product in 3xTF32
+    (:func:`tf32x3_matmul_ref`). Inputs may be strided views."""
     pk = cw.packed
     x = torch.cat([x_lr.float(), x_hr.float()], 1)
     if isinstance(pk, ColsPackedTF32):
@@ -992,18 +1036,24 @@ def _check_packed(cw):
     return cw.packed
 
 
-def _entries(pk) -> Tuple[str, str]:
-    """(pre-pass, chain) name suffixes of a packing's kernels."""
-    if isinstance(pk, ColsPackedTF32):
-        return "tf32x3", "tf32x3"
-    return "bf16", "wgmma"
+def _entries(pk) -> str:
+    """The name suffix of a packing's chain kernels."""
+    return "tf32x3" if isinstance(pk, ColsPackedTF32) else "wgmma"
 
 
 def _launch_terms(lib, x_lr, x_hr, kf, pk, terms, stream):
-    rc = getattr(lib, f"surs_cols_terms_{_entries(pk)[0]}")(
-        x_lr.data_ptr(), x_hr.data_ptr(), x_lr.shape[1],
-        None if kf is None else kf.data_ptr(), x_lr.shape[0],
-        pk.wfeat.data_ptr(), pk.cvec.data_ptr(), terms.data_ptr(), stream)
+    """The pre-pass of ``pk``'s dtype; the float32 one reads its inputs
+    with row strides (K1's parts in place), the bf16 one contiguous."""
+    n, c_lr = x_lr.shape
+    kfp = None if kf is None else kf.data_ptr()
+    w = (pk.wfeat.data_ptr(), pk.cvec.data_ptr(), terms.data_ptr(), stream)
+    if isinstance(pk, ColsPackedTF32):
+        rc = lib.surs_cols_terms_tf32x3(
+            x_lr.data_ptr(), x_lr.stride(0), x_hr.data_ptr(), x_hr.stride(0),
+            c_lr, kfp, 0 if kf is None else kf.stride(0), n, *w)
+    else:
+        rc = lib.surs_cols_terms_bf16(x_lr.data_ptr(), x_hr.data_ptr(), c_lr,
+                                      kfp, n, *w)
     if rc != 0:
         raise RuntimeError("column-term pre-pass launch failed: "
                            + lib.surs_cuda_error_string(rc).decode())
@@ -1225,19 +1275,19 @@ def _check_cols_inputs(x_lr, x_hr, fw: FusedWeights, depth_shapes) -> bool:
     return dev.type == "cpu"
 
 
-def _cols_wgmma(wrapper, x_lr, x_hr, kf, zf, cw, z: int, launch):
-    """K3/K4 on the card: per chunk of columns, the pre-pass into one
-    reused column-term buffer, then the chain kernel (``launch(lib,
-    terms, s, e, out_hr, out_lr, stream)``); one count on ``wrapper`` per
-    call."""
-    pk = _check_packed(cw)
+def _cols_wgmma(wrapper, x_lr, x_hr, kf, pk, shape, launch,
+                chunk: int = CHUNK_COLS):
+    """K3/K4 (and the float32 K1) on the card: per chunk of ``chunk``
+    columns, the pre-pass into one reused column-term buffer, then the
+    chain kernel (``launch(lib, terms, s, e, out_hr, out_lr, stream)``)
+    into outputs of ``shape``; one count on ``wrapper`` per call."""
     n, dev = x_lr.shape[0], x_lr.device
-    out_hr = torch.empty((n, z), dtype=torch.float32, device=dev)
-    out_lr = torch.empty((n, z), dtype=torch.float32, device=dev)
+    out_hr = torch.empty(shape, dtype=torch.float32, device=dev)
+    out_lr = torch.empty(shape, dtype=torch.float32, device=dev)
     if out_hr.numel() == 0:
         return out_hr, out_lr
     lib = _kernel_lib("fused_cols_mlp")
-    plan = chunk_plan(n)
+    plan = chunk_plan(n, chunk)
     terms = _terms_buffer(plan[0][1] - plan[0][0], dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1272,15 +1322,15 @@ def fused_dual_mlp_cols(x_lr: torch.Tensor, x_hr: torch.Tensor,
     _check_kernel_inputs([x_lr, x_hr, zf], w)
     z = zf.shape[0]
     pk = _check_packed(fw)
-    entry = f"surs_fused_dual_mlp_cols_{_entries(pk)[1]}"
+    entry = f"surs_fused_dual_mlp_cols_{_entries(pk)}"
 
     def launch(lib, terms, s, e, out_hr, out_lr, stream):
         return getattr(lib, entry)(
             terms.data_ptr(), zf.data_ptr(), e - s, z, pk.whid.data_ptr(),
             pk.cvec.data_ptr(), pk.hvec.data_ptr(), out_hr[s:e].data_ptr(),
             out_lr[s:e].data_ptr(), stream)
-    return _cols_wgmma(fused_dual_mlp_cols, x_lr, x_hr, None, zf, fw, z,
-                       launch)
+    return _cols_wgmma(fused_dual_mlp_cols, x_lr, x_hr, None, pk,
+                       (x_lr.shape[0], z), launch)
 
 
 fused_dual_mlp_cols.launches = 0
@@ -1311,34 +1361,100 @@ def fused_dual_mlp_runs(x_lr: torch.Tensor, x_hr: torch.Tensor,
                          f"zt of {zt.shape[0]}")
     _check_kernel_inputs([x_lr, x_hr, kf, zt], w)
     pk = _check_packed(fw)
-    entry = f"surs_fused_dual_mlp_runs_{_entries(pk)[1]}"
+    entry = f"surs_fused_dual_mlp_runs_{_entries(pk)}"
 
     def launch(lib, terms, s, e, out_hr, out_lr, stream):
         return getattr(lib, entry)(
             terms.data_ptr(), zt.data_ptr(), e - s, pk.whid.data_ptr(),
             pk.cvec.data_ptr(), pk.hvec.data_ptr(), out_hr[s:e].data_ptr(),
             out_lr[s:e].data_ptr(), stream)
-    return _cols_wgmma(fused_dual_mlp_runs, x_lr, x_hr, kf, zt, fw,
-                       RUNS_WINDOW, launch)
+    return _cols_wgmma(fused_dual_mlp_runs, x_lr, x_hr, kf, pk,
+                       (nr, RUNS_WINDOW), launch)
 
 
 fused_dual_mlp_runs.launches = 0
 
 
+# ------------------------------------------------------- float32 K1 -----
+# The float32 K1 runs the float32 K3/K4's kernels with one point a row: the
+# pre-pass with the point's depth (input column FEAT) as kf, then the
+# chain (csrc/fused_cols_mlp.cu: fused_dual_mlp_points_tf32x3_kernel).
+# Points per pre-pass / chain launch pair: the evaluators' 50,000-point
+# calls run in one pair (fewer waves of the persistent chain than two
+# chunks of CHUNK_COLS), their [50,048, TERMS_COLS] float32 terms 565 MB
+# of scratch; larger calls in chunks of this many, at most 740 MB.
+K1_CHUNK_POINTS = 65536
+
+
+def _k1_split(parts: List[torch.Tensor]):
+    """(x_lr, x_hr, kf): views of K1's one or two input parts as the
+    pre-pass reads them, no copy. The features split where the parts do
+    (one part: all FEAT in x_lr, x_hr empty); kf the depth column FEAT."""
+    p0 = parts[0]
+    if p0.shape[1] > FEAT:
+        return p0[:, :FEAT], p0[:, FEAT:FEAT], p0[:, FEAT]
+    c = FEAT - p0.shape[1]
+    return p0, parts[1][:, :c], parts[1][:, c]
+
+
+def _k1_f32_packing(fw) -> ColsPackedTF32:
+    pk = fw.packed
+    if not isinstance(pk, ColsPackedTF32):
+        raise ValueError("the float32 K1 takes prepare_fused_weights' "
+                         "packing (weights on the card, at the kernel's "
+                         "widths) or the float32 ColsWeights")
+    return pk
+
+
+def fused_dual_mlp_tf32x3_ref(x, w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 K1's arithmetic from the plain versions of its
+    kernels: :func:`column_terms_ref` with kf the depth column, then per
+    MLP the float32 K3/K4's chain one row a point with no in-chain depth,
+    pred_lr entering the fine MLP unrounded. ``x`` as for
+    :func:`fused_dual_mlp`; ``w`` the float32 FusedWeights with their
+    packing, or the float32 ColsWeights of the same MLPs -> (pred_hr [N],
+    pred_lr [N])."""
+    parts = _k1_parts(x, _fw_of(w))
+    pk = _k1_f32_packing(w)
+    hid = [unpack_hidden_tf32(pk.whid[m]) for m in (0, 1)]
+    x_lr, x_hr, kf = _k1_split(parts)
+    hr, lr = _chunked(x_lr, x_hr, kf, x_lr.new_zeros(1), functools.partial(
+        _dual_cols_tf32x3_ref, cw=w, hid=hid))
+    return hr[:, 0], lr[:, 0]
+
+
+def k1_scratch_bytes(n: int) -> int:
+    """Bytes of the float32 K1's column-term buffer for an n-point call:
+    one chunk's rows, rounded up to the pre-pass's blocks."""
+    rows = min(n, K1_CHUNK_POINTS)
+    return -(-rows // TERMS_BLOCK) * TERMS_BLOCK * TERMS_COLS * 4
+
+
+def _k1_tf32x3(parts: List[torch.Tensor], fw: FusedWeights):
+    pk = _k1_f32_packing(fw)
+    x_lr, x_hr, kf = _k1_split(parts)
+
+    def launch(lib, terms, s, e, out_hr, out_lr, stream):
+        return lib.surs_fused_dual_mlp_points_tf32x3(
+            terms.data_ptr(), e - s, pk.whid.data_ptr(), pk.cvec.data_ptr(),
+            pk.hvec.data_ptr(), out_hr[s:e].data_ptr(),
+            out_lr[s:e].data_ptr(), stream)
+    return _cols_wgmma(fused_dual_mlp, x_lr, x_hr, kf, pk, (x_lr.shape[0],),
+                       launch, chunk=K1_CHUNK_POINTS)
+
+
 # ---------------------------------------------------------------- launch --
 def _launch(wrapper, lib_name: str, fn_name: str, fw: FusedWeights, shape,
-            inputs, weights=None):
+            inputs, weights):
     """Launch ``fn_name`` of kernel library ``lib_name`` on the current
-    stream of the weights' device with ``inputs`` + weights (``weights``,
-    else fw's packed weights and biases) + two float32 outputs of
-    ``shape``; count the launch on ``wrapper``. Raises if it fails."""
+    stream of the weights' device with ``inputs`` + ``weights`` + two
+    float32 outputs of ``shape``; count the launch on ``wrapper``. Raises
+    if it fails."""
     dev = fw.w_lr.device
     out_hr = torch.empty(shape, dtype=torch.float32, device=dev)
     out_lr = torch.empty(shape, dtype=torch.float32, device=dev)
     if out_hr.numel() == 0:
         return out_hr, out_lr
-    if weights is None:
-        weights = (fw.w_lr, fw.b_lr, fw.w_hr, fw.b_hr)
     lib = _kernel_lib(lib_name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1352,18 +1468,14 @@ def _launch(wrapper, lib_name: str, fn_name: str, fw: FusedWeights, shape,
     return out_hr, out_lr
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# the weights, the outputs and the stream of the K1-style entry points
-_W7 = [_P] * 7
-# K3 / K4 in either dtype: the pre-pass and the two chains
-_TERMS = [_P, _P, _I, _P, _I, _P, _P, _P, _P]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# K3 / K4 in either dtype: the chains
 _K3 = [_P, _P, _I, _I] + [_P] * 6
 _K4 = [_P, _P, _I] + [_P] * 6
 # each library's entry points and their argument types
 _SIGNATURES = {
     "fused_dual_mlp": {
         "surs_fused_dual_mlp_bf16": [_P, _I, _P, _I, _I] + [_P] * 6,
-        "surs_fused_dual_mlp_f32": [_P, _I, _P, _I, _I] + _W7,
     },
     "fused_train_tf32": {
         "surs_fused_dual_mlp_train_tf32x3": [_P, _P, _P, _I, _I] + [_P] * 9,
@@ -1372,12 +1484,14 @@ _SIGNATURES = {
                             + [_I, _I, _P],
     },
     "fused_cols_mlp": {
-        "surs_cols_terms_bf16": _TERMS,
-        "surs_cols_terms_tf32x3": _TERMS,
+        "surs_cols_terms_bf16": [_P, _P, _I, _P, _I] + [_P] * 4,
+        "surs_cols_terms_tf32x3": [_P, _L, _P, _L, _I, _P, _L, _I]
+                                  + [_P] * 4,
         "surs_fused_dual_mlp_cols_wgmma": _K3,
         "surs_fused_dual_mlp_cols_tf32x3": _K3,
         "surs_fused_dual_mlp_runs_wgmma": _K4,
         "surs_fused_dual_mlp_runs_tf32x3": _K4,
+        "surs_fused_dual_mlp_points_tf32x3": [_P, _I] + [_P] * 6,
     },
 }
 

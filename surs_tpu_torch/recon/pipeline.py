@@ -353,14 +353,15 @@ def build_reconstructor(cfg, model, device, octree_mode: str
                         ) -> Reconstructor:
     """A Reconstructor for ``model`` under a resolved config: K1's
     weights packed in ``cfg.feature_dtype``, and the column weights of
-    K3 and K4 where dense evaluation or the runs octree needs them. The
-    packed weights are copies: load the model's weights first."""
+    K3 and K4 where dense evaluation or the runs octree needs them (in
+    float32 on the card sharing K1's packing). The packed weights are
+    copies: load the model's weights first."""
     kdt = _DTYPES[cfg.feature_dtype]
     weights = prepare_fused_weights(model.mlp_lr, model.mlp_hr, dtype=kdt)
     cols = None
     if not cfg.use_octree or octree_mode == "runs":
         cols = prepare_cols_weights(model.mlp_lr, model.mlp_hr, cfg.hg_dim,
-                                    dtype=kdt)
+                                    dtype=kdt, fw=weights)
     return Reconstructor(model, weights, device, feature_dtype=kdt,
                          octree_mode=octree_mode, cols_weights=cols,
                          load_size=cfg.loadSize, z_size=cfg.z_size)

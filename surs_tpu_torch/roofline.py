@@ -11,7 +11,7 @@ TB/s; at the 700 W limit). Operations are the real multiply-adds of the occupanc
 (2 FLOP each), counted from the layer widths: K1 and K2 run both MLPs
 per point; K3 and K4 run the feature products once per column (or
 window) and only the hidden chain per depth sample; K5 only moves rows.
-K2 and the float32 K3 / K4 are float32-accurate on the tensor cores by
+K2 and the float32 K1 / K3 / K4 are float32-accurate on the tensor cores by
 3xTF32 (three TF32 products per float32 product): their bounds count the
 same multiply-adds three times at the TF32 peak, beside the float32 FMA
 bound. The winding
@@ -85,6 +85,13 @@ def dual_mlp_work(n: int, dtype: str, input_bytes: int
 def k1_work(n: int, dtype: str):
     """K1: x [n, 321] float32."""
     return dual_mlp_work(n, dtype, 321 * 4)
+
+
+def k1_tf32x3_work(n: int):
+    """The float32 K1 in 3xTF32 (bound at the "tf32" peak): three times
+    k1_work's float32 operations, the same bytes."""
+    flops, nbytes = k1_work(n, "float32")
+    return 3.0 * flops, nbytes
 
 
 def k2_work(n: int):
@@ -170,6 +177,11 @@ def containment_work(points: int, faces: int):
 MAIN_PATH = {
     "K1": ("fused_dual_mlp, 50,000 points per call, bf16 weights",
            lambda: k1_work(50_000, "bfloat16"), "bfloat16"),
+    "K1_f32": ("the same call with float32 weights (feature_dtype "
+               "float32), 3xTF32 on the tensor cores",
+               lambda: k1_tf32x3_work(50_000), "tf32"),
+    "K1_f32_fma": ("the same in float32 FMA outside the tensor cores",
+                   lambda: k1_work(50_000, "float32"), "float32"),
     "K2": ("fused_dual_mlp_train, 12,000 points per call (batch 2 x "
            "6,000), float32 weights, 3xTF32 on the tensor cores",
            lambda: k2_tf32x3_work(12_000), "tf32"),

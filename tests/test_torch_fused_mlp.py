@@ -149,10 +149,21 @@ def _k1_shapes():
             "2x": (320, d[3]), "3h": (d[3], d[4]), "3x": (320, d[4])}
 
 
-def test_k1_packing_only_for_bf16_at_kernel_widths(mlps):
+def test_k1_packing_only_for_bf16_at_kernel_widths(mlps, monkeypatch):
+    """K1's packing at the kernel's widths: K1Packed in bf16 on any
+    device; in float32 the float32 K3/K4's ColsPackedTF32, built only for
+    weights on the card (forced here), never on the CPU."""
     _, _, t_lr, t_hr = mlps
     assert prepare_fused_weights(t_lr, t_hr).packed is None
+    monkeypatch.setattr(fm, "_packs_f32_k1", lambda dev: True)
+    assert isinstance(prepare_fused_weights(t_lr, t_hr).packed,
+                      fm.ColsPackedTF32)
+    narrow = (SurfaceClassifier((321, 64, 32, 16, 8, 1)),
+              SurfaceClassifier((322, 64, 32, 16, 8, 1)))
+    for dtype in (torch.float32, torch.bfloat16):
+        assert prepare_fused_weights(*narrow, dtype=dtype).packed is None
     pk = prepare_fused_weights(t_lr, t_hr, dtype=torch.bfloat16).packed
+    assert isinstance(pk, fm.K1Packed)
     assert tuple(pk.stages.shape) == (2, fm.K1_STAGES, 8192)
     assert pk.stages.dtype == torch.bfloat16
     assert pk.nbytes.dtype == torch.int32 and pk.vec.dtype == torch.float32
