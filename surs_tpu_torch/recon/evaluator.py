@@ -33,6 +33,7 @@ from ..config import resolve_device
 from ..ops.fused_mlp import fused_dual_mlp_cols
 from ..ops.geometry import in_image_mask, normalize_depth, orthogonal
 from ..ops.grid_sample import grid_sample_points
+from ..utils.profiling import annotate, host_wait
 from .grid import flat_index_to_world
 
 # eval_fn: [3, C] float32 world points -> (hr [C], lr [C])
@@ -134,7 +135,8 @@ def _sil_dilate(mask: torch.Tensor, dilate: int) -> torch.Tensor:
 
 
 def _sil_hit_lattice(mask, calib, L: int, mat_l: np.ndarray,
-                     null_axis: int) -> torch.Tensor:
+                     null_axis: int, stats: Optional[Dict] = None
+                     ) -> torch.Tensor:
     """[L, L, L] bool visual-hull hits of an already dilated mask."""
     dev = mask.device
     axes = [a for a in range(3) if a != null_axis]
@@ -142,9 +144,11 @@ def _sil_hit_lattice(mask, calib, L: int, mat_l: np.ndarray,
     coords = [torch.zeros(L * L, device=dev)] * 3
     coords[axes[0]] = ii.repeat_interleave(L)
     coords[axes[1]] = ii.repeat(L)
-    scale = torch.tensor(np.diag(mat_l[:3, :3]), dtype=torch.float32,
-                         device=dev)
-    offset = torch.tensor(mat_l[:3, 3], dtype=torch.float32, device=dev)
+    with host_wait(stats):
+        scale = torch.tensor(np.diag(mat_l[:3, :3]), dtype=torch.float32,
+                             device=dev)
+    with host_wait(stats):
+        offset = torch.tensor(mat_l[:3, 3], dtype=torch.float32, device=dev)
     pts = torch.stack(coords) * scale[:, None] + offset[:, None]
     xyz = orthogonal(pts[None], calib)
     uv = xyz[:, :2, :].transpose(1, 2)
@@ -156,32 +160,37 @@ def _sil_hit_lattice(mask, calib, L: int, mat_l: np.ndarray,
 
 
 def silhouette_masks(mask, calib_np: np.ndarray, R: int, mat: np.ndarray,
-                     schedule, dilate: int, device):
+                     schedule, dilate: int, device,
+                     stats: Optional[Dict] = None):
     """Per-level visual-hull masks: ({stride: [L,L,L] lattice hits},
-    {stride: [L-1]^3 next-level cell-center hits})."""
+    {stride: [L-1]^3 next-level cell-center hits}); ``stats`` counts the
+    copies to the device as host waits."""
     null_axis = sil_null_axis(calib_np, mat)
     if null_axis is None:
         raise ValueError(
             "silhouette pruning needs the 2-D projection fast path (an "
             "orthographic lattice axis)")
-    mask = torch.as_tensor(mask, dtype=torch.float32, device=device)
+    with host_wait(stats):
+        mask = torch.as_tensor(mask, dtype=torch.float32, device=device)
     if mask.dim() == 2:
         mask = mask[..., None]
     mask = _sil_dilate(mask, dilate)
-    calib = torch.as_tensor(np.asarray(calib_np), dtype=torch.float32,
-                            device=device)
+    with host_wait(stats):
+        calib = torch.as_tensor(np.asarray(calib_np), dtype=torch.float32,
+                                device=device)
     lat: Dict = {}
     center: Dict = {}
     for reso in schedule:
         L = R // reso
         mat_l = mat.copy()
         mat_l[:3, :3] = mat[:3, :3] * reso
-        lat[reso] = _sil_hit_lattice(mask, calib, L, mat_l, null_axis)
+        lat[reso] = _sil_hit_lattice(mask, calib, L, mat_l, null_axis,
+                                     stats)
         if reso > 1:
             mat_c = mat_l.copy()
             mat_c[:3, 3] = mat_c[:3, 3] + np.diag(mat[:3, :3]) * (reso // 2)
             center[reso] = _sil_hit_lattice(mask, calib, L - 1, mat_c,
-                                            null_axis)
+                                            null_axis, stats)
     return lat, center
 
 
@@ -195,10 +204,11 @@ LevelFn = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], int]
 def octree_fields(eval_level: LevelFn, resolution: int, mat: np.ndarray,
                   threshold: float, init_resolution: int, device,
                   silhouette=None, silhouette_calib=None,
-                  silhouette_dilate: int = 3
+                  silhouette_dilate: int = 3, stats: Optional[Dict] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The coarse-to-fine level loop shared by the point (mono) and window
-    (runs) evaluators: per level, the still-dirty lattice goes to
+    (runs) evaluators: per level (a ``surs.evaluate.level`` span, counted
+    in ``stats["levels"]``), the still-dirty lattice goes to
     ``eval_level``, then prunable cells are filled and the state expands
     to the next level. Returns (hr, lr, points scored)."""
     R = resolution
@@ -207,7 +217,7 @@ def octree_fields(eval_level: LevelFn, resolution: int, mat: np.ndarray,
     if silhouette is not None:
         lats, centers = silhouette_masks(
             silhouette, np.asarray(silhouette_calib), R, mat, schedule,
-            silhouette_dilate, device)
+            silhouette_dilate, device, stats)
     L = R // schedule[0]
     val_hr = torch.zeros((L,) * 3, device=device)
     val_lr = torch.zeros((L,) * 3, device=device)
@@ -216,15 +226,16 @@ def octree_fields(eval_level: LevelFn, resolution: int, mat: np.ndarray,
     rfl = torch.zeros_like(evald)
     queries = 0
     for reso in schedule:
-        dirty = ~evald & ~rfh & ~rfl
-        if lats is not None:
-            dirty = dirty & lats[reso]
-        queries += eval_level(reso, dirty, val_hr, val_lr)
-        if reso <= 1:
-            break
-        val_hr, val_lr, evald, rfh, rfl = _prune_upsample(
-            reso, threshold, val_hr, val_lr, evald, rfh, rfl, dirty,
-            centers[reso] if centers is not None else None)
+        with annotate("surs.evaluate.level", stats, count="levels"):
+            dirty = ~evald & ~rfh & ~rfl
+            if lats is not None:
+                dirty = dirty & lats[reso]
+            queries += eval_level(reso, dirty, val_hr, val_lr)
+            if reso <= 1:
+                break
+            val_hr, val_lr, evald, rfh, rfl = _prune_upsample(
+                reso, threshold, val_hr, val_lr, evald, rfh, rfl, dirty,
+                centers[reso] if centers is not None else None)
     return val_hr, val_lr, queries
 
 
@@ -238,17 +249,21 @@ def eval_grid_octree(eval_fn: EvalFn, resolution: int, mat: np.ndarray,
     """Evaluate the (hr, lr) occupancy fields over the R^3 grid with the
     index->world affine ``mat``; returns two [R, R, R] float32 tensors
     on ``device`` (CUDA unless named; raises without a GPU).
-    ``stats["queries"]`` counts the points evaluated."""
+    ``stats["queries"]`` counts the points evaluated, ``stats["levels"]``
+    the levels and ``stats["syncs"]`` the host's waits on the card."""
     R = resolution
     mat = np.asarray(mat)
     device = resolve_device(device)
-    offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=device)
+    with host_wait(stats):
+        offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=device)
 
     def eval_level(reso, dirty, val_hr, val_lr):
         L = R // reso
-        idx = torch.nonzero(dirty.reshape(-1)).squeeze(1)
-        scale = torch.tensor(np.diag(mat[:3, :3]) * reso,
-                             dtype=torch.float32, device=device)
+        with host_wait(stats):
+            idx = torch.nonzero(dirty.reshape(-1)).squeeze(1)
+        with host_wait(stats):
+            scale = torch.tensor(np.diag(mat[:3, :3]) * reso,
+                                 dtype=torch.float32, device=device)
         flat_hr = val_hr.view(-1)
         flat_lr = val_lr.view(-1)
         for c0 in range(0, idx.numel(), num_samples):
@@ -262,7 +277,7 @@ def eval_grid_octree(eval_fn: EvalFn, resolution: int, mat: np.ndarray,
 
     val_hr, val_lr, queries = octree_fields(
         eval_level, R, mat, threshold, init_resolution, device, silhouette,
-        silhouette_calib, silhouette_dilate)
+        silhouette_calib, silhouette_dilate, stats)
     if stats is not None:
         stats["queries"] = stats.get("queries", 0) + queries
     return val_hr, val_lr
@@ -317,15 +332,17 @@ def check_cols_features(cols_weights, feat_lr, feat_hr) -> None:
 
 def eval_grid_dense_cols(cols_weights, feat_lr, feat_hr, calib,
                          resolution: int, mat: np.ndarray, load_size: int,
-                         z_size: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                         z_size: float, stats: Optional[Dict] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense evaluation of every grid point through kernel K3:
     ``cols_weights`` (ops.fused_mlp.ColsWeights), feature maps
     [1, H, W, C] in any dtype, a calibration for which
     :func:`dense_cols_separable` holds. Returns (hr, lr) [R, R, R], the
-    flat order ``column * R + k``."""
+    flat order ``column * R + k``; ``stats`` counts the host's waits on
+    the card."""
     return _dense_cols_rows(cols_weights, feat_lr, feat_hr, calib,
                             resolution, mat, load_size, z_size, 0,
-                            resolution)
+                            resolution, stats)
 
 
 def eval_grid_dense_cols_sharded(cols_weights, feat_lr, feat_hr, calib,
@@ -357,21 +374,24 @@ def eval_grid_dense_cols_sharded(cols_weights, feat_lr, feat_hr, calib,
 
 def _dense_cols_rows(cols_weights, feat_lr, feat_hr, calib, R: int,
                      mat: np.ndarray, load_size: int, z_size: float,
-                     row0: int, rows: int):
+                     row0: int, rows: int, stats: Optional[Dict] = None):
     """x-rows ``row0 ... row0 + rows`` of the dense grid through K3:
     (hr, lr) [rows, R, R]."""
     check_cols_features(cols_weights, feat_lr, feat_hr)
     mat = np.asarray(mat)
     dev = feat_lr.device
-    calib_t = torch.as_tensor(np.asarray(calib, np.float32),
-                              device=dev).reshape(-1, 4, 4)[:1]
+    with host_wait(stats):
+        calib_t = torch.as_tensor(np.asarray(calib, np.float32),
+                                  device=dev).reshape(-1, 4, 4)[:1]
     # the shared depth feature: z depends only on k
-    zpts = flat_index_to_world(torch.arange(R, device=dev), R, 1, mat)
+    zpts = flat_index_to_world(torch.arange(R, device=dev), R, 1, mat,
+                               stats)
     zf = normalize_depth(orthogonal(zpts[None], calib_t)[0, 2, :],
                          load_size, z_size).contiguous()
     # each column at k = 0 (its uv holds for every k)
     cid = torch.arange(row0 * R, (row0 + rows) * R, device=dev)
-    xyz = orthogonal(flat_index_to_world(cid * R, R, 1, mat)[None], calib_t)
+    xyz = orthogonal(flat_index_to_world(cid * R, R, 1, mat, stats)[None],
+                     calib_t)
     mask = in_image_mask(xyz[:, :2, :])[0]
     uv = xyz[:, :2, :].transpose(1, 2)
     x_lr = grid_sample_points(feat_lr, uv)[0]

@@ -29,6 +29,7 @@ import torch
 from ..ops.fused_mlp import RUNS_WINDOW, fused_dual_mlp_runs
 from ..ops.geometry import in_image_mask, normalize_depth, orthogonal
 from ..ops.grid_sample import grid_sample_points
+from ..utils.profiling import host_wait
 from .evaluator import (check_cols_features, dense_cols_separable,
                         level_schedule, octree_fields)
 
@@ -63,7 +64,8 @@ def eval_grid_octree_runs(cols_weights, feat_lr, feat_hr, calib,
     [1, H, W, C] on the fields' device, ``nwin_chunk`` windows per K4
     launch, ``silhouette`` as the mono evaluator's. Returns (hr, lr)
     [R, R, R] float32; ``stats["queries"]`` counts the points K4 scored
-    (windows x 8)."""
+    (windows x 8), ``stats["levels"]`` the levels and ``stats["syncs"]``
+    the host's waits on the card."""
     R = resolution
     mat = np.asarray(mat)
     if not runs_supported(calib, mat, R, init_resolution):
@@ -72,16 +74,19 @@ def eval_grid_octree_runs(cols_weights, feat_lr, feat_hr, calib,
             "window-aligned level lattices; use the mono mode")
     check_cols_features(cols_weights, feat_lr, feat_hr)
     dev = feat_lr.device
-    calib_t = torch.as_tensor(np.asarray(calib, np.float32),
-                              device=dev).reshape(-1, 4, 4)[:1]
-    offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=dev)
+    with host_wait(stats):
+        calib_t = torch.as_tensor(np.asarray(calib, np.float32),
+                                  device=dev).reshape(-1, 4, 4)[:1]
+    with host_wait(stats):
+        offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=dev)
     tvec = torch.arange(ZB, device=dev)
 
     def eval_level(reso, dirty, val_hr, val_lr):
         L = R // reso
         Wz = L // ZB
-        scale = torch.tensor(np.diag(mat[:3, :3]) * reso,
-                             dtype=torch.float32, device=dev)
+        with host_wait(stats):
+            scale = torch.tensor(np.diag(mat[:3, :3]) * reso,
+                                 dtype=torch.float32, device=dev)
         # this level's depth features
         kidx = torch.arange(L, dtype=torch.float32, device=dev)
         zero = torch.zeros_like(kidx)
@@ -92,7 +97,8 @@ def eval_grid_octree_runs(cols_weights, feat_lr, feat_hr, calib,
         zt = zf[:ZB].contiguous()
         kf_all = zf - zf[0]
         bits = dirty.reshape(L * L * Wz, ZB)
-        ids = torch.nonzero(bits.any(dim=1)).squeeze(1)
+        with host_wait(stats):
+            ids = torch.nonzero(bits.any(dim=1)).squeeze(1)
         flat_hr = val_hr.view(-1)
         flat_lr = val_lr.view(-1)
         for c0 in range(0, ids.numel(), nwin_chunk):
@@ -110,14 +116,17 @@ def eval_grid_octree_runs(cols_weights, feat_lr, feat_hr, calib,
                 kf_all[k0].contiguous(), zt, cols_weights)
             # only the window's dirty points take the new values
             ok = bits[w]
-            tgt = ((cid * L + k0)[:, None] + tvec[None, :])[ok]
-            flat_hr[tgt] = (hr * mask)[ok]
-            flat_lr[tgt] = (lr * mask)[ok]
+            with host_wait(stats):
+                tgt = ((cid * L + k0)[:, None] + tvec[None, :])[ok]
+            with host_wait(stats):
+                flat_hr[tgt] = (hr * mask)[ok]
+            with host_wait(stats):
+                flat_lr[tgt] = (lr * mask)[ok]
         return ids.numel() * ZB
 
     val_hr, val_lr, queries = octree_fields(
         eval_level, R, mat, threshold, init_resolution, dev, silhouette,
-        calib, silhouette_dilate)
+        calib, silhouette_dilate, stats)
     if stats is not None:
         stats["queries"] = stats.get("queries", 0) + queries
     return val_hr, val_lr

@@ -2,10 +2,12 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import host_wait
 
 
 def grid_matrix(res: Tuple[int, int, int], b_min, b_max) -> np.ndarray:
@@ -22,19 +24,23 @@ def grid_matrix(res: Tuple[int, int, int], b_min, b_max) -> np.ndarray:
 
 
 def flat_index_to_world(flat_idx: torch.Tensor, lattice_size: int,
-                        stride: int, mat: np.ndarray) -> torch.Tensor:
+                        stride: int, mat: np.ndarray,
+                        stats: Optional[Dict] = None) -> torch.Tensor:
     """Flat indices [N] into an L^3 lattice whose grid coordinates are
     ``stride * (i, j, k)`` -> [3, N] float32 world points, on the
-    indices' device (``surs_tpu/recon/grid.py:63``)."""
+    indices' device (``surs_tpu/recon/grid.py:63``). ``stats`` counts
+    the copies of the affine's terms as host waits."""
     L = lattice_size
     k = flat_idx % L
     j = (flat_idx // L) % L
     i = flat_idx // (L * L)
     ijk = torch.stack([i, j, k]).to(torch.float32) * float(stride)
     dev = flat_idx.device
-    scale = torch.tensor(np.diag(mat[:3, :3]), dtype=torch.float32,
-                         device=dev)
-    offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=dev)
+    with host_wait(stats):
+        scale = torch.tensor(np.diag(mat[:3, :3]), dtype=torch.float32,
+                             device=dev)
+    with host_wait(stats):
+        offset = torch.tensor(mat[:3, 3], dtype=torch.float32, device=dev)
     return ijk * scale[:, None] + offset[:, None]
 
 

@@ -23,11 +23,12 @@ the JAX device extractor does (``surs_tpu/recon/tetra_device.py:915``).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.profiling import host_wait
 from . import native
 from .mc_tables import _CORNER_OFFSETS, MC_CASE_TRIS, MC_EDGES
 
@@ -61,7 +62,7 @@ def _check(name: str, what: str, n: int, cap: Optional[int]) -> None:
 def march(volume: torch.Tensor, level: float, groups, name: str,
           cell_chunk: Optional[int] = None, max_cells: Optional[int] = None,
           max_tris: Optional[int] = None, max_verts: Optional[int] = None,
-          max_pts: Optional[int] = None
+          max_pts: Optional[int] = None, stats: Optional[Dict] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cell emission and welding shared by marching cubes and
     marching tetrahedra. ``groups`` lists (cube corners [k], case table
@@ -70,9 +71,12 @@ def march(volume: torch.Tensor, level: float, groups, name: str,
     and each slot of the case emits one triangle whose vertices lie on
     the three corner pairs. Triangles come out group by group, slot by
     slot, cell by cell. ``cell_chunk`` bounds the cells emitted at once
-    (the working set on the card) without changing the result."""
+    (the working set on the card) without changing the result. ``stats``
+    counts the host's waits on the card (``utils.profiling.host_wait``):
+    each compaction, size read and table copy."""
     _, verts, faces = _march(volume, level, groups, name, cell_chunk,
-                             max_cells, max_tris, max_verts, max_pts)
+                             max_cells, max_tris, max_verts, max_pts,
+                             stats=stats)
     return verts, faces
 
 
@@ -122,7 +126,8 @@ def _march(volume: torch.Tensor, level: float, groups, name: str,
            max_tris: Optional[int], max_verts: Optional[int],
            max_pts: Optional[int], x_offset: int = 0,
            global_x: Optional[int] = None,
-           x_act_limit: Optional[int] = None):
+           x_act_limit: Optional[int] = None,
+           stats: Optional[Dict] = None):
     """-> (edge keys, verts, faces); ``global_x`` set: the slab mode of
     :func:`march_slab`."""
     dev = volume.device
@@ -141,17 +146,23 @@ def _march(volume: torch.Tensor, level: float, groups, name: str,
     cells = (cmin <= level) & (cmax > level)
     if x_act_limit is not None:
         cells = cells[:x_act_limit]
-    active = torch.nonzero(cells)                                # [M, 3]
+    with host_wait(stats):
+        active = torch.nonzero(cells)                            # [M, 3]
     del cmin, cmax, cells
     n_cells = active.shape[0]
     _check(name, "cells", n_cells, max_cells)
     if n_cells == 0:
         return empty
 
-    offs = torch.as_tensor(_CORNER_OFFSETS, device=dev)
+    with host_wait(stats):
+        offs = torch.as_tensor(_CORNER_OFFSETS, device=dev)
     flat = vol.reshape(-1)
-    tables = [(torch.as_tensor(np.asarray(c), device=dev),
-               torch.as_tensor(t, device=dev)) for c, t in groups]
+    tables = []
+    for c, t in groups:
+        with host_wait(stats):
+            corners = torch.as_tensor(np.asarray(c), device=dev)
+        with host_wait(stats):
+            tables.append((corners, torch.as_tensor(t, device=dev)))
     n_slots = [t.shape[1] for _, t in tables]
     # keys / ends per (group, slot), each a list over the cell chunks
     keys = [[[] for _ in range(s)] for s in n_slots]
@@ -170,8 +181,10 @@ def _march(volume: torch.Tensor, level: float, groups, name: str,
             for slot in range(n_slots[g]):
                 tri = table[case, slot]                          # [m, 3, 2]
                 has = tri[:, 0, 0] >= 0
-                tri = tri[has]
-                g_has = gid[has]
+                with host_wait(stats):
+                    tri = tri[has]
+                with host_wait(stats):
+                    g_has = gid[has]
                 ga = torch.gather(g_has, 1, tri[..., 0])
                 gb = torch.gather(g_has, 1, tri[..., 1])
                 keys[g][slot].append(torch.minimum(ga, gb) * n_vox
@@ -183,12 +196,15 @@ def _march(volume: torch.Tensor, level: float, groups, name: str,
     if keys.shape[0] == 0:
         return empty
     keys = keys.reshape(-1)
-    uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
+    with host_wait(stats):
+        uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
     _check(name, "verts", uniq.shape[0], max_verts)
     if max_pts is not None:
         # an edge runs from its componentwise-min lattice point, the
         # smaller id: the crossing points are the distinct low ends
-        _check(name, "pts", torch.unique(uniq // n_vox).shape[0], max_pts)
+        with host_wait(stats):
+            n_pts = torch.unique(uniq // n_vox).shape[0]
+        _check(name, "pts", n_pts, max_pts)
     faces = inv.reshape(-1, 3)
     if slab:
         # every slab orients an edge the same way: (lower, higher) id
@@ -217,14 +233,16 @@ def _march(volume: torch.Tensor, level: float, groups, name: str,
     verts = pa + t[:, None] * (pb - pa)
     ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
           & (faces[:, 0] != faces[:, 2]))
-    return uniq, verts.float(), faces[ok]
+    with host_wait(stats):
+        faces = faces[ok]
+    return uniq, verts.float(), faces
 
 
 def marching_cubes(volume: torch.Tensor, level: float, **caps
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Isosurface ``volume == level`` of an [X, Y, Z] field; a point is
-    inside where its value > level. ``caps``: ``cell_chunk`` and the
-    capacities of :func:`march`."""
+    inside where its value > level. ``caps``: ``cell_chunk``, the
+    capacities of :func:`march` and its ``stats``."""
     return march(volume, level, CUBE_GROUPS, "marching_cubes", **caps)
 
 

@@ -15,7 +15,6 @@ The functional ``reconstruction`` and ``gen_mesh`` build a
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -24,6 +23,7 @@ import torch
 from ..ops.fused_mlp import (FusedWeights, prepare_cols_weights,
                              prepare_fused_weights)
 from ..ops.point_query import fused_query
+from ..utils.profiling import annotate, host_wait
 from .evaluator import (dense_cols_separable, eval_grid_dense,
                         eval_grid_dense_cols, eval_grid_octree)
 from .evaluator_runs import eval_grid_octree_runs, runs_supported
@@ -93,10 +93,12 @@ class Reconstructor:
         self.point_mesh = point_mesh
 
     @torch.inference_mode()
-    def encode(self, images):
-        """images [B, S, S, 3] -> (img_sr, feats_lr, feat_hr), NHWC."""
-        images = torch.as_tensor(np.asarray(images, np.float32),
-                                 device=self.device)
+    def encode(self, images, stats: Optional[Dict] = None):
+        """images [B, S, S, 3] -> (img_sr, feats_lr, feat_hr), NHWC;
+        ``stats`` counts the copy of the images as a host wait."""
+        with host_wait(stats):
+            images = torch.as_tensor(np.asarray(images, np.float32),
+                                     device=self.device)
         return self.model.encode(images)
 
     @torch.inference_mode()
@@ -113,7 +115,9 @@ class Reconstructor:
         pruning of the octree.
         ``stats["mode"]`` names the path that ran: 'dense-cols', 'dense',
         'octree-runs' or 'octree-mono'; ``stats["queries"]`` counts the
-        points scored."""
+        points scored, ``stats["levels"]`` the octree levels, and
+        ``stats["syncs"]`` / ``stats["sync_wait_s"]`` the host's waits on
+        the card (``utils.profiling.host_wait``)."""
         R = resolution
         mat = grid_matrix((R,) * 3, b_min, b_max)
         if transform is not None:
@@ -129,7 +133,7 @@ class Reconstructor:
             stats["queries"] = stats.get("queries", 0) + R ** 3
             sdf_hr, sdf_lr = eval_grid_dense_cols(
                 cw, feats_lr[-1], feat_hr, calib, R, mat, self.load_size,
-                self.z_size)
+                self.z_size, stats=stats)
             return sdf_hr, sdf_lr, mat
         f_lr = feats_lr[-1].to(self.feature_dtype)
         f_hr = feat_hr.to(self.feature_dtype)
@@ -142,8 +146,9 @@ class Reconstructor:
                 silhouette=silhouette, silhouette_dilate=silhouette_dilate,
                 stats=stats)
             return sdf_hr, sdf_lr, mat
-        calib_t = torch.as_tensor(np.asarray(calib, np.float32),
-                                  device=self.device)
+        with host_wait(stats):
+            calib_t = torch.as_tensor(np.asarray(calib, np.float32),
+                                      device=self.device)
 
         def eval_fn(points):
             hr, lr = fused_query(self.weights, f_lr, f_hr, points[None],
@@ -229,7 +234,8 @@ class Reconstructor:
         ``stats["mc"]`` names what ran ('device/tets', 'device/cubes',
         'host/tets', 'sharded/cubes' or 'sharded/tets'); an 'auto'
         fallback also sets ``stats["mc_fallback"]`` to the capacity
-        error."""
+        error; ``stats["syncs"]`` and ``stats["sync_wait_s"]`` count the
+        host's waits on the card outside the sharded extractor."""
         mat = np.asarray(mat)
         caps = mc_caps or {}
         stats = {} if stats is None else stats
@@ -260,7 +266,8 @@ class Reconstructor:
             extract = _DEVICE_EXTRACTORS[algorithm]
             kw = {k: v for k, v in caps.items() if k in _DEVICE_CAPS}
             try:
-                staged = [_to_host(*extract(sdf, level, **kw))
+                staged = [_to_host(*extract(sdf, level, stats=stats, **kw),
+                               stats=stats)
                           for sdf in (sdf_hr, sdf_lr)]
             except CapacityError as err:
                 if mc_backend == "device":
@@ -273,19 +280,24 @@ class Reconstructor:
                 return
         stats["mc"] = "host/tets"
         for sdf in (sdf_hr, sdf_lr):
+            with host_wait(stats):
+                sdf = sdf.detach().float().cpu().numpy()
             yield to_world(*extract_isosurface(sdf, level, "native"))
 
     def gen_mesh_begin(self, cfg, data: dict, save_path: str,
                        stats: Optional[Dict] = None):
         """Encode and evaluate one subject; returns ``finish()``, which
         extracts both meshes and writes the OBJ pair, returning
-        (path_hr, path_lr). ``stats`` gathers the evaluation's mode and
-        queries, the faces of each mesh and the seconds of the OBJ
-        writes (``write_s``), the seconds spent extracting (``extract_s``)
-        and the extractor that ran (``mc``). The extractor is
-        ``cfg.mc_backend`` with ``cfg.mc_algorithm``
+        (path_hr, path_lr). ``stats`` gathers the evaluation's mode,
+        queries and levels, the faces of each mesh, the extractor that
+        ran (``mc``), the host's waits on the card (``syncs``,
+        ``sync_wait_s``) and the seconds of the spans ``surs.encode``,
+        ``surs.evaluate``, ``surs.extract`` and ``surs.write``
+        (``encode_s``, ``evaluate_s``, ``extract_s``, ``write_s``). The
+        extractor is ``cfg.mc_backend`` with ``cfg.mc_algorithm``
         (``surs_tpu/recon/pipeline.py:419-428``)."""
-        _, feats_lr, feat_hr = self.encode(data["img_LR"])
+        with annotate("surs.encode", stats):
+            _, feats_lr, feat_hr = self.encode(data["img_LR"], stats)
         if "calib" in data:
             calib = np.asarray(data["calib"], np.float32).reshape(-1, 4, 4)
         else:
@@ -293,13 +305,14 @@ class Reconstructor:
         silhouette = None
         if cfg.mask_prune and "mask_LR" in data:
             silhouette = data["mask_LR"]
-        sdf_hr, sdf_lr, mat = self.evaluate(
-            feats_lr, feat_hr, calib, cfg.resolution, data["b_min"],
-            data["b_max"], use_octree=cfg.use_octree,
-            num_samples=cfg.num_samples,
-            threshold=cfg.threshold,
-            init_resolution=cfg.octree_init_resolution,
-            silhouette=silhouette, stats=stats)
+        with annotate("surs.evaluate", stats):
+            sdf_hr, sdf_lr, mat = self.evaluate(
+                feats_lr, feat_hr, calib, cfg.resolution, data["b_min"],
+                data["b_max"], use_octree=cfg.use_octree,
+                num_samples=cfg.num_samples,
+                threshold=cfg.threshold,
+                init_resolution=cfg.octree_init_resolution,
+                silhouette=silhouette, stats=stats)
         stem = os.path.splitext(save_path)[0]
         paths = (stem + "_HR.obj", stem + "_LR.obj")
 
@@ -309,17 +322,14 @@ class Reconstructor:
                 sdf_hr, sdf_lr, mat, mc_backend=cfg.mc_backend,
                 mc_caps={"algorithm": cfg.mc_algorithm}, stats=st)
             for path in paths:
-                t0 = time.perf_counter()
-                mesh = next(meshes)
-                t1 = time.perf_counter()
+                with annotate("surs.extract", st):
+                    mesh = next(meshes)
                 if mesh is None:        # a sharded mesh lands on rank 0
                     continue
                 verts, faces = mesh
-                save_obj_mesh(path, verts, faces)
+                with annotate("surs.write", st):
+                    save_obj_mesh(path, verts, faces)
                 st.setdefault("faces", []).append(len(faces))
-                st["extract_s"] = st.get("extract_s", 0.0) + t1 - t0
-                st["write_s"] = (st.get("write_s", 0.0)
-                                 + time.perf_counter() - t1)
             return paths
 
         return finish
@@ -329,10 +339,12 @@ class Reconstructor:
         return self.gen_mesh_begin(cfg, data, save_path, stats)()
 
 
-def _to_host(verts: torch.Tensor, faces: torch.Tensor):
+def _to_host(verts: torch.Tensor, faces: torch.Tensor,
+             stats: Optional[Dict] = None):
     """Start copying a mesh to the host; returns ``fetch() -> (verts,
     faces)`` numpy arrays. On the card the copies go into pinned memory,
-    non-blocking, and ``fetch`` waits for them alone."""
+    non-blocking, and ``fetch`` waits for them alone (a host wait that
+    ``stats`` counts)."""
     if verts.device.type != "cuda":
         return lambda: (verts.numpy(), faces.numpy())
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -343,7 +355,8 @@ def _to_host(verts: torch.Tensor, faces: torch.Tensor):
     done.record()
 
     def fetch():
-        done.synchronize()
+        with host_wait(stats):
+            done.synchronize()
         return host[0].numpy(), host[1].numpy()
 
     return fetch

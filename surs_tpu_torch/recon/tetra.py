@@ -77,5 +77,6 @@ def marching_tetrahedra(volume: torch.Tensor, level: float, **caps
     [F, 3] int64) on the field's device. ``caps``: ``cell_chunk`` (cells
     emitted at once; the result does not change) and the capacities
     ``max_cells``, ``max_tris``, ``max_verts``, ``max_pts`` (None: no
-    limit; exceeded: ``marching.CapacityError``)."""
+    limit; exceeded: ``marching.CapacityError``), and ``stats``, which
+    counts the host's waits on the card (:func:`marching.march`)."""
     return march(volume, level, TET_GROUPS, "marching_tetrahedra", **caps)

@@ -54,6 +54,18 @@ def normalize_image(image, mask) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     return arr[None], m
 
 
+def _add_stats(into: dict, part: dict) -> None:
+    """Add one subject's stats into ``into``: numbers summed, lists
+    extended, anything else (the path names) replaced."""
+    for k, v in part.items():
+        if isinstance(v, list):
+            into.setdefault(k, []).extend(v)
+        elif isinstance(v, (int, float)):
+            into[k] = into.get(k, 0) + v
+        else:
+            into[k] = v
+
+
 class SuRSService:
     """``params``: optional Flax params tree (numpy leaves) of the JAX
     package's SuRSNet, or its variables ``{"params", "batch_stats"}``,
@@ -125,8 +137,9 @@ class SuRSService:
         ``writer_thread`` runs the finish stage (extraction, copies,
         native writes, which release the GIL) on one worker thread,
         with at most ``depth`` subjects in flight beyond the one being
-        begun. The results equal sequential :meth:`reconstruct`
-        calls."""
+        begun; each subject then keeps its own ``stats``, added into
+        ``stats`` on this thread once all are done. The results equal
+        sequential :meth:`reconstruct` calls."""
         os.makedirs(out_dir, exist_ok=True)
         if pipeline is None:
             pipeline = self.cfg.resolution >= 512
@@ -134,10 +147,10 @@ class SuRSService:
             return [self.reconstruct(image, mask, name, out_dir, stats)
                     for image, mask, name in items]
 
-        def begin(image, mask, name):
+        def begin(image, mask, name, st=stats):
             return self.rec.gen_mesh_begin(
                 self.cfg, self._data(image, mask),
-                os.path.join(out_dir, name + ".obj"), stats)
+                os.path.join(out_dir, name + ".obj"), st)
 
         if not writer_thread:
             results, pending = [], None
@@ -149,14 +162,19 @@ class SuRSService:
             if pending is not None:
                 results.append(pending())
             return results
-        futures = []
+        futures, parts = [], []
         with ThreadPoolExecutor(max_workers=1,
                                 thread_name_prefix="surs-writer") as ex:
             for image, mask, name in items:
-                futures.append(ex.submit(begin(image, mask, name)))
+                parts.append(None if stats is None else {})
+                futures.append(ex.submit(begin(image, mask, name,
+                                               parts[-1])))
                 if len(futures) > depth:
                     futures[len(futures) - 1 - depth].result()
-            return [f.result() for f in futures]
+            results = [f.result() for f in futures]
+        for part in parts if stats is not None else ():
+            _add_stats(stats, part)
+        return results
 
     def fields(self, image, mask, stats: Optional[dict] = None):
         """Raw (sdf_hr, sdf_lr) [R, R, R] occupancy tensors of a

@@ -24,7 +24,14 @@ collated batches in the training dataset's item format (``img_LR``
 ``no_gen_mesh``.
 
 ``cfg.profile_dir`` records a ``torch.profiler`` trace
-(``utils/profiling.Profiler``) from the epochs' start to the return.
+(``utils/profiling.Profiler``) from the epochs' start to the return. An
+iteration's phases are spans (``utils/profiling.annotate``), regions of
+that trace: ``surs.train.data_wait`` (the next batch from the loader),
+``surs.train.h2d`` (the batch's host arrays and their copies to the
+device), ``surs.train.step`` (the step call, with ``step.make_step``'s
+phases inside), ``surs.train.log`` (the lagged loss line, whose read of
+the loss is a ``surs.sync``), ``surs.train.checkpoint`` and
+``surs.train.ply``; ``train()``'s summary sums their seconds.
 
 ``--fused_train`` on CUDA takes the fused step (kernel K2) unless the
 model has batch norms or more than one view, as in the JAX package; every
@@ -35,6 +42,7 @@ carried over.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Callable, Dict, Mapping, Optional, Sequence
@@ -49,7 +57,7 @@ from ..models.surs_net import surs_net_from_config
 from ..ops.fused_mlp import prepare_fused_weights
 from ..recon.mesh_io import save_samples_truncted_prob
 from ..recon.pipeline import Reconstructor
-from ..utils.profiling import Profiler
+from ..utils.profiling import Profiler, annotate, host_wait
 from .checkpoint import CheckpointManager
 from .optim import lr_for_epoch, make_optimizer, set_learning_rate
 from .step import create_train_state, make_train_step
@@ -154,9 +162,11 @@ def train(cfg: SuRSConfig, loader=None, max_iters: Optional[int] = None,
           gen_items: Optional[Mapping[str, Sequence[Mapping]]] = None,
           on_step: Optional[Callable] = None, yaw_list=None) -> Dict:
     """Train ``cfg``'s model; returns a wall-time summary: iterations,
-    wall seconds, host seconds waiting for data, spent in the step call
-    (the card may still be running it), saving checkpoints, logging,
-    preparing batches and writing PLYs.
+    wall seconds, and the host seconds of the loop's spans: waiting for
+    data (``data_sec``), in the step call (``enqueue_sec``; the card may
+    still be running it), saving checkpoints (``save_sec``), logging
+    (``log_sec``), preparing batches (``prep_sec``) and writing PLYs
+    (``ply_sec``).
 
     ``loader``: None builds the datasets of ``cfg.dataroot`` (views
     ``yaw_list``, default every degree) and their loader; else an
@@ -197,7 +207,7 @@ def train(cfg: SuRSConfig, loader=None, max_iters: Optional[int] = None,
 def _run(cfg, loader, max_iters, device, gen_items, on_step, datasets,
          t_train0: float) -> Dict:
     """train()'s epochs on a resolved config and a built loader."""
-    data_sec = net_sec = save_sec = log_sec = prep_sec = ply_sec = 0.0
+    sec: Dict[str, float] = {}      # seconds of the loop's spans
     # float32 means float32: no TF32 in the f32 products and convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -230,9 +240,12 @@ def _run(cfg, loader, max_iters, device, gen_items, on_step, datasets,
 
     def summary():
         return {"iters": iters_done, "wall_sec": time.time() - t_train0,
-                "data_sec": data_sec, "enqueue_sec": net_sec,
-                "save_sec": save_sec, "log_sec": log_sec,
-                "prep_sec": prep_sec, "ply_sec": ply_sec}
+                "data_sec": sec.get("data_wait_s", 0.0),
+                "enqueue_sec": sec.get("step_s", 0.0),
+                "save_sec": sec.get("checkpoint_s", 0.0),
+                "log_sec": sec.get("log_s", 0.0),
+                "prep_sec": sec.get("h2d_s", 0.0),
+                "ply_sec": sec.get("ply_s", 0.0)}
 
     lr = cfg.learning_rate
     iters_done = 0
@@ -247,40 +260,39 @@ def _run(cfg, loader, max_iters, device, gen_items, on_step, datasets,
         if new_lr != lr:
             lr = new_lr
             set_learning_rate(state.optimizer, lr)
-        iter_data_t = time.time()
-        for idx, raw in enumerate(loader):
-            iter_start = time.time()
-            data_sec += iter_start - iter_data_t
-            host = batch_host_arrays(raw, quantize_images=True)
-            batch = _to_device(host, device)
-            t_prep = time.time()
-            prep_sec += t_prep - iter_start
-            state, metrics = step_fn(state, batch)
-            iter_net = time.time()
-            net_sec += iter_net - t_prep
+        batches = iter(loader)
+        for idx in itertools.count():
+            with annotate("surs.train.data_wait", sec) as waited:
+                raw = next(batches, None)
+            if raw is None:
+                break
+            with annotate("surs.train.h2d", sec) as prepared:
+                host = batch_host_arrays(raw, quantize_images=True)
+                batch = _to_device(host, device)
+            with annotate("surs.train.step", sec) as stepped:
+                state, metrics = step_fn(state, batch)
             if on_step is not None:
                 on_step(state, metrics)
             if idx % cfg.freq_plot == 0:
-                t_l = time.time()
-                if pending_log is not None:
-                    p_epoch, p_idx, err_d, d_t, n_t = pending_log
-                    err = float(err_d)
-                    eta = ((iter_net - epoch_start) / (idx + 1)) \
-                        * len(loader) - (iter_net - epoch_start)
-                    print(f"Name: {cfg.name} | Epoch: {p_epoch} | "
-                          f"{p_idx}/{len(loader)} | Err: {err:.06f} | "
-                          f"LR: {lr:.06f} | Sigma: {cfg.sigma:.02f} | "
-                          f"dataT: {d_t:.05f} | netT: {n_t:.05f} | "
-                          f"ETA: {int(eta // 60):02d}:"
-                          f"{int(eta % 60):02d}")
-                pending_log = (epoch, idx, metrics["total"],
-                               iter_start - iter_data_t,
-                               iter_net - iter_start)
-                log_sec += time.time() - t_l
+                with annotate("surs.train.log", sec):
+                    if pending_log is not None:
+                        p_epoch, p_idx, err_d, d_t, n_t = pending_log
+                        with host_wait():
+                            err = float(err_d)
+                        spent = time.time() - epoch_start
+                        eta = spent / (idx + 1) * len(loader) - spent
+                        print(f"Name: {cfg.name} | Epoch: {p_epoch} | "
+                              f"{p_idx}/{len(loader)} | Err: {err:.06f} | "
+                              f"LR: {lr:.06f} | Sigma: {cfg.sigma:.02f} | "
+                              f"dataT: {d_t:.05f} | netT: {n_t:.05f} | "
+                              f"ETA: {int(eta // 60):02d}:"
+                              f"{int(eta % 60):02d}")
+                    pending_log = (epoch, idx, metrics["total"],
+                                   waited.seconds,
+                                   prepared.seconds + stepped.seconds)
             if idx % cfg.freq_save == 0 and idx != 0:
-                t_s = time.time()
-                ckpt.save(state, epoch)
-                save_sec += time.time() - t_s
+                with annotate("surs.train.checkpoint", sec):
+                    ckpt.save(state, epoch)
             if cfg.freq_save_ply > 0 and idx % cfg.freq_save_ply == 0:
                 # reference quirk kept (apps/train_SuRS.py:166-184):
                 # pred_hr, which the fine MLP evaluates at points_lr, is
@@ -288,29 +300,25 @@ def _run(cfg, loader, max_iters, device, gen_items, on_step, datasets,
                 # reference, idx 0 of every epoch dumps; freq_save_ply
                 # <= 0 turns the dumps off (the pred_hr read waits for
                 # the card).
-                t_p = time.time()
-                pts = host["points_hr"][0].T
-                save_samples_truncted_prob(
-                    os.path.join(results, f"{epoch}pred.ply"), pts,
-                    metrics["pred_hr"][0].float().cpu().numpy())
-                save_samples_truncted_prob(
-                    os.path.join(results, f"{epoch}pred_gt.ply"), pts,
-                    host["labels_hr"][0])
-                save_samples_truncted_prob(
-                    os.path.join(results, f"{epoch}pred_lr.ply"),
-                    host["points_lr"][0].T, host["labels_lr"][0])
-                ply_sec += time.time() - t_p
-            iter_data_t = time.time()
+                with annotate("surs.train.ply", sec):
+                    pts = host["points_hr"][0].T
+                    save_samples_truncted_prob(
+                        os.path.join(results, f"{epoch}pred.ply"), pts,
+                        metrics["pred_hr"][0].float().cpu().numpy())
+                    save_samples_truncted_prob(
+                        os.path.join(results, f"{epoch}pred_gt.ply"), pts,
+                        host["labels_hr"][0])
+                    save_samples_truncted_prob(
+                        os.path.join(results, f"{epoch}pred_lr.ply"),
+                        host["points_lr"][0].T, host["labels_lr"][0])
             iters_done += 1
             if max_iters is not None and iters_done >= max_iters:
-                t_s = time.time()
-                ckpt.save(state, epoch)
-                save_sec += time.time() - t_s
+                with annotate("surs.train.checkpoint", sec):
+                    ckpt.save(state, epoch)
                 profiler.stop()
                 return summary()
-        t_s = time.time()
-        ckpt.save(state, epoch)
-        save_sec += time.time() - t_s
+        with annotate("surs.train.checkpoint", sec):
+            ckpt.save(state, epoch)
         if not cfg.no_gen_mesh:
             items = gen_items if gen_items is not None else \
                 _dataset_gen_items(cfg, *datasets)

@@ -32,6 +32,7 @@ import torch
 
 from ..models.layers import sync_batch_stats
 from ..models.surs_net import SuRSNet
+from ..utils.profiling import annotate
 
 
 def denormalize_images(batch: Dict) -> Dict:
@@ -68,7 +69,10 @@ def make_step(loss_fn: Callable, mesh=None) -> Callable:
     """``step(state, batch) -> (state, metrics)`` around
     ``loss_fn(model, batch) -> (total, (errors, pred_hr, pred_lr))``;
     metrics hold the detached errors, ``pred_hr`` and ``pred_lr``.
-    ``mesh``: data parallelism over its ``data`` axis (module doc)."""
+    ``mesh``: data parallelism over its ``data`` axis (module doc). The
+    phases are the spans ``surs.train.forward`` (the loss),
+    ``surs.train.backward``, ``surs.train.allreduce`` (with a mesh) and
+    ``surs.train.optimizer``."""
     comm = None
     if mesh is not None:
         from ..parallel.mesh import DATA_AXIS
@@ -79,13 +83,19 @@ def make_step(loss_fn: Callable, mesh=None) -> Callable:
         state.optimizer.zero_grad(set_to_none=True)
         with (contextlib.nullcontext() if comm is None
               else sync_batch_stats(state.model, comm)):
-            total, (errors, pred_hr, pred_lr) = loss_fn(state.model, batch)
-            total.backward()
+            with annotate("surs.train.forward"):
+                total, (errors, pred_hr, pred_lr) = loss_fn(state.model,
+                                                            batch)
+            with annotate("surs.train.backward"):
+                total.backward()
         if comm is not None:
-            errors = dict(zip(errors, _mean_over(
-                comm, torch.stack([v.detach() for v in errors.values()]))))
-            _average_gradients(state.model, comm)
-        state.optimizer.step()
+            with annotate("surs.train.allreduce"):
+                errors = dict(zip(errors, _mean_over(
+                    comm, torch.stack([v.detach()
+                                       for v in errors.values()]))))
+                _average_gradients(state.model, comm)
+        with annotate("surs.train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in errors.items()}
         metrics["pred_hr"] = pred_hr.detach()

@@ -178,7 +178,9 @@ def test_dense_service_writes_obj_pair(tmp_path):
     img = (rng.random((S, S, 3)) * 255).astype(np.uint8)
     stats = {}
     hr, lr = svc.fields(img, None, stats=stats)
-    assert stats == {"mode": "dense-cols", "queries": 32 ** 3}
+    # the host waits: the calibration's copy and two affines of two terms
+    assert stats.pop("sync_wait_s") >= 0.0
+    assert stats == {"mode": "dense-cols", "queries": 32 ** 3, "syncs": 5}
     assert tuple(hr.shape) == (32, 32, 32) and bool(torch.isfinite(lr).all())
     for path in svc.reconstruct(img, None, "subj", str(tmp_path)):
         assert open(path).read().count("\nf ") > 0
